@@ -1,0 +1,153 @@
+"""Card-only tests of the PyTorch/CUDA port (marker ``cuda``; skipped without
+a card). They import nothing of JAX, so they run on the GPU machine:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py configures JAX.) The kernel is
+held against its plain version on the same card inputs: f32 to 1e-5, bf16
+to 1e-2 (bf16 output and P rounding). The model paths run a small model with
+random weights made by numpy from a seed.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from npe_pfn_tpu_torch import NPEPFN
+from npe_pfn_tpu_torch.models import TabICAConfig, TabICAModel, bar_distribution, transformer
+from npe_pfn_tpu_torch.models.checkpoint import params_from_numpy
+from npe_pfn_tpu_torch.ops import flash_attention as fa
+from torch_parity import cuda_device  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(2)
+
+CASES = [
+    # (b, lq, lk, h, hd, mask kind)
+    (3, 64, 64, 2, 32, "shared"),
+    (3, 96, 160, 2, 16, "shared"),
+    (2, 100, 150, 2, 128, "batch"),
+    (4, 32, 96, 2, 32, "batch_empty_row"),
+    (2, 16, 40, 1, 16, "shared_empty"),
+    (2, 257, 513, 2, 128, "batch"),
+]
+
+
+def _mask(kind, b, lk, gen, dev):
+    if kind == "shared":
+        return torch.arange(lk, device=dev) < lk - 7
+    m = torch.arange(lk, device=dev)[None] < torch.randint(1, lk + 1, (b, 1), generator=gen,
+                                                           device=dev)
+    if kind == "batch_empty_row":
+        m[1] = False
+    if kind == "shared_empty":
+        return torch.zeros(lk, dtype=torch.bool, device=dev)
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,hd,kind", CASES)
+def test_kernel_matches_plain(cuda_device, dtype, b, lq, lk, h, hd, kind):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((b, lq, h, hd), (b, lk, h, hd), (b, lk, h, hd)))
+    m = _mask(kind, b, lk, gen, cuda_device)
+    before = fa.flash_row_attention.launches
+    out = fa.flash_row_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    assert fa.flash_row_attention.launches == before + 1
+    ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
+    ref = ref * fa._any_valid_gate(m, torch.float32)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+def test_kernel_reads_strided_layout(cuda_device):
+    """q/k/v as views into a wider [B, L, 3, H, hd] buffer: read through the
+    strides, no copy."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn(2, 300, 3, 2, 32, generator=gen, device=cuda_device).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    m = torch.ones(300, dtype=torch.bool, device=cuda_device)
+    out = fa.flash_row_attention(q, k, v, m)
+    ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
+    torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda_device):
+    m = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    bad_hd = torch.randn(1, 64, 2, 24, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_row_attention(bad_hd, bad_hd, bad_hd, m)
+    half = torch.randn(1, 64, 2, 32, device=cuda_device).half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_row_attention(half, half, half, m)
+    wide = torch.randn(1, 64, 2, 33, device=cuda_device)[..., 1:]
+    with pytest.raises(ValueError):
+        fa.flash_row_attention(wide, wide, wide, m)
+
+
+def _random_model(d=64, heads=2, layers=2, f=12, bars=32, seed=0, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    hd, hid = d // heads, 4 * d
+
+    def nrm(*shape, s=0.05):
+        return (s * rng.standard_normal(shape)).astype(np.float32)
+
+    flat = {"embed/w_feat": nrm(d, s=1.0), "embed/b_feat": nrm(d), "embed/w_y": nrm(d, s=1.0),
+            "embed/b_y": nrm(d), "embed/y_missing": nrm(d, s=1.0),
+            "head/ln/scale": 1 + nrm(d), "head/ln/bias": nrm(d), "head/w1": nrm(d, 2 * d),
+            "head/b1": nrm(2 * d), "head/w2": nrm(2 * d, bars), "head/b2": nrm(bars),
+            "blocks/mlp/w1": nrm(layers, d, hid), "blocks/mlp/b1": nrm(layers, hid),
+            "blocks/mlp/w2": nrm(layers, hid, d), "blocks/mlp/b2": nrm(layers, d)}
+    for ln in ("ln_feat", "ln_row", "ln_mlp"):
+        flat[f"blocks/{ln}/scale"] = 1 + nrm(layers, d)
+        flat[f"blocks/{ln}/bias"] = nrm(layers, d)
+    for att in ("feat_attn", "row_attn"):
+        for w in ("wq", "wk", "wv"):
+            flat[f"blocks/{att}/{w}"] = nrm(layers, d, heads, hd, s=0.2)
+        flat[f"blocks/{att}/wo"] = nrm(layers, heads, hd, d)
+        flat[f"blocks/{att}/bo"] = nrm(layers, d)
+    cfg = TabICAConfig(d_model=d, num_heads=heads, num_layers=layers, max_features=f,
+                       num_bars=bars, dtype=dtype, scores_dtype=dtype)
+    return TabICAModel(cfg=cfg, params=params_from_numpy(flat, "cuda"),
+                       borders=bar_distribution.make_borders(bars, device="cuda"))
+
+
+def test_transformer_kernel_path_matches_dense(cuda_device):
+    """f32 model: row attention through the kernel ('auto' on CUDA) against
+    the dense path ('off'), joint forward and encode + decode."""
+    model = _random_model()
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x_ctx = torch.randn(300, 12, generator=gen, device=cuda_device)
+    y_ctx = torch.randn(300, generator=gen, device=cuda_device)
+    x_qry = torch.randn(100, 12, generator=gen, device=cuda_device)
+    ctx_mask = torch.arange(300, device=cuda_device) < 280
+    before = fa.flash_row_attention.launches
+    auto = transformer.forward(model.cfg, model.params, x_ctx, y_ctx, x_qry, ctx_mask=ctx_mask)
+    assert fa.flash_row_attention.launches - before == 2 * model.cfg.num_layers
+    off_cfg = dataclasses.replace(model.cfg, flash="off")
+    dense = transformer.forward(off_cfg, model.params, x_ctx, y_ctx, x_qry, ctx_mask=ctx_mask)
+    torch.testing.assert_close(auto, dense, rtol=1e-4, atol=1e-4)
+    cache = transformer.encode_context(model.cfg, model.params, x_ctx, y_ctx, ctx_mask=ctx_mask)
+    dec = transformer.decode_queries(model.cfg, model.params, cache, x_qry, ctx_mask=ctx_mask)
+    torch.testing.assert_close(dec, auto, rtol=1e-5, atol=1e-5)
+
+
+def test_npepfn_samples_on_card(cuda_device):
+    model = _random_model(f=16, dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    theta = torch.randn(600, 3, generator=gen, device=cuda_device)
+    x = theta @ torch.randn(3, 5, generator=gen, device=cuda_device) + 0.3 * torch.randn(
+        600, 5, generator=gen, device=cuda_device)
+    est = NPEPFN(model=model, filter_context_size=256, qry_chunk=256)
+    est.append_simulations(theta, x)
+    before = fa.flash_row_attention.launches
+    s, lp = est.sample(500, x[0], return_log_probs=True)
+    assert s.shape == (500, 3) and lp.shape == (500,)
+    assert torch.isfinite(s).all() and torch.isfinite(lp).all()
+    # 3 dims x 2 layers x (1 encode + 2 decode chunks of 256)
+    assert fa.flash_row_attention.launches - before == 18
