@@ -1,13 +1,15 @@
-"""Carry a TabICA checkpoint's weights into the port.
+"""TabICA checkpoints: the JAX package's format, read and written.
 
-Counterpart of ``npe_pfn_tpu/models/checkpoint.py`` (load side). A checkpoint
-is a ``.npz`` of flat parameter names (``blocks/row_attn/wq``, stacked
+Counterpart of ``npe_pfn_tpu/models/checkpoint.py``. A checkpoint is a
+``.npz`` of flat parameter names (``blocks/row_attn/wq``, stacked
 ``[L, d, H, hd]``, ...; ``__temperature__`` reserved for the calibration
-temperature) beside a ``.json`` of the config. Both are read with numpy.
+temperature) beside a ``.json`` of the config. Both are read and written with
+numpy, so a checkpoint either package writes loads in the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.pytree_io import atomic_write, flatten, unflatten
 from . import bar_distribution as bar
 from .config import TabICAConfig
 from .regressor import TabICAModel
@@ -29,16 +32,23 @@ def params_from_numpy(flat: dict, device="cuda", dtype=torch.float32) -> dict:
     reserved ``__temperature__`` key is skipped.
     """
     device = resolve_device(device)
-    params: dict = {}
-    for name, arr in flat.items():
-        if name == TEMPERATURE_KEY:
-            continue
-        node = params
-        parts = name.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = torch.tensor(np.asarray(arr), dtype=dtype, device=device)
-    return params
+    return unflatten({name: torch.tensor(np.asarray(arr), dtype=dtype, device=device)
+                      for name, arr in flat.items() if name != TEMPERATURE_KEY})
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Flatten nested parameters into ``{"a/b/c": np.ndarray}`` (f32 stays f32)."""
+    return {name: t.detach().cpu().numpy() for name, t in flatten(params).items()}
+
+
+def save(path: str, model: TabICAModel) -> None:
+    """Write ``path`` (.npz, compressed) and ``path + ".json"``, as the JAX
+    package's ``checkpoint.save`` does; each file is replaced atomically."""
+    arrays = params_to_numpy(model.params)
+    arrays[TEMPERATURE_KEY] = np.asarray(model.temperature, dtype=np.float32)
+    atomic_write(path, lambda f: np.savez_compressed(f, **arrays))
+    cfg_json = json.dumps(dataclasses.asdict(model.cfg), indent=2).encode()
+    atomic_write(path + ".json", lambda f: f.write(cfg_json))
 
 
 def load(path: str, device="cuda", **cfg_overrides) -> TabICAModel:

@@ -36,6 +36,14 @@ class TabICAModel:
     def device(self) -> torch.device:
         return self.borders.device
 
+    @classmethod
+    def create(cls, generator: torch.Generator, cfg: TabICAConfig, device=None) -> "TabICAModel":
+        """A randomly initialized model (``transformer.init_params``) on
+        ``device`` (default: the generator's)."""
+        device = generator.device if device is None else torch.device(device)
+        return cls(cfg=cfg, params=transformer.init_params(generator, cfg, device),
+                   borders=bar.make_borders(cfg.num_bars, cfg.bar_range, device=device))
+
 
 @dataclasses.dataclass
 class ContextStats:

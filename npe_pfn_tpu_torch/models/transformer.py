@@ -1,11 +1,13 @@
-"""TabICA two-axis in-context tabular transformer, inference path.
+"""TabICA two-axis in-context tabular transformer.
 
 Counterpart of ``npe_pfn_tpu/models/transformer.py``. Every table cell is a
 token of width ``d_model``; each block runs attention across the feature axis
 within a row, attention across the row axis within a column, and an MLP.
 Context rows attend to context rows; query rows attend only to context rows,
 so ``encode_context`` caches each layer's row-attention K/V once and
-``decode_queries`` streams query rows against it.
+``decode_queries`` streams query rows against it. The joint ``forward`` is
+differentiable (pretraining, with per-layer recomputation under ``remat``);
+``encode_context`` and ``decode_queries`` run without gradients.
 
 Parameters are the nested dict of ``checkpoint.params_from_numpy``, with block
 weights stacked along a leading layer axis. The dtype policy is the JAX
@@ -17,12 +19,15 @@ and the residual stream is stored in ``cfg.dtype``.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.flash_attention import flash_row_attention
+from ..ops.flash_attention import flash_row_attention, flash_row_attention_trainable
+from ..utils.pytree_io import flatten
 from .config import TabICAConfig
 
 Params = dict
@@ -49,6 +54,79 @@ def _check_supported(cfg: TabICAConfig):
 def layer(blocks: Params, i: int) -> Params:
     """The ``i``-th layer's slice of the stacked block parameters."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def init_params(generator: torch.Generator, cfg: TabICAConfig, device=None) -> Params:
+    """GPT-2-style init with the JAX package's tree, shapes and scales: normal
+    weights of std 0.02, residual-output projections (``wo``, ``mlp/w2``) at
+    0.02 / sqrt(2 * 3 * num_layers), embeddings at std 1, zero biases, unit
+    layer-norm scales. Block parameters are stacked along a leading layer
+    axis; storage is f32. Draws come from ``generator`` (on its own device)
+    and land on ``device`` (default: the generator's)."""
+    _check_supported(cfg)
+    d, h, hd, n = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.num_layers
+    hid = d * cfg.mlp_ratio
+    device = generator.device if device is None else torch.device(device)
+    f32 = torch.float32
+    out_scale = 0.02 / math.sqrt(2.0 * 3 * n)
+
+    def nrm(shape, s=0.02):
+        draw = torch.randn(shape, generator=generator, device=generator.device, dtype=f32)
+        return (s * draw).to(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=f32, device=device)
+
+    def attn_params():
+        return {
+            "wq": nrm((n, d, h, hd)),
+            "wk": nrm((n, d, h, hd)),
+            "wv": nrm((n, d, h, hd)),
+            "wo": nrm((n, h, hd, d), out_scale),
+            "bo": zeros(n, d),
+        }
+
+    def ln():
+        return {"scale": torch.ones((n, d), dtype=f32, device=device), "bias": zeros(n, d)}
+
+    return {
+        "embed": {
+            "w_feat": nrm((d,), 1.0),
+            "b_feat": zeros(d),
+            "w_y": nrm((d,), 1.0),
+            "b_y": zeros(d),
+            "y_missing": nrm((d,), 1.0),
+        },
+        "blocks": {
+            "ln_feat": ln(),
+            "feat_attn": attn_params(),
+            "ln_row": ln(),
+            "row_attn": attn_params(),
+            "ln_mlp": ln(),
+            "mlp": {
+                "w1": nrm((n, d, hid)),
+                "b1": zeros(n, hid),
+                "w2": nrm((n, hid, d), out_scale),
+                "b2": zeros(n, d),
+            },
+        },
+        "head": {
+            "ln": {"scale": torch.ones((d,), dtype=f32, device=device), "bias": zeros(d)},
+            "w1": nrm((d, 2 * d)),
+            "b1": zeros(2 * d),
+            "w2": nrm((2 * d, cfg.num_bars)),
+            "b2": zeros(cfg.num_bars),
+        },
+    }
+
+
+def param_count(params: Params) -> int:
+    return sum(t.numel() for t in flatten(params).values())
 
 
 # ---------------------------------------------------------------------------
@@ -118,8 +196,11 @@ def _use_kernel(cfg: TabICAConfig, q_in) -> bool:
 
 
 def _attn_core_flash(cfg: TabICAConfig, p: Params, q_in, k, v, kv_mask):
-    """Row attention through ``flash_row_attention`` with the leading batch
-    dims flattened; a per-batch mask becomes ``[B, Lk]`` rows."""
+    """Row attention through the kernel's op with the leading batch dims
+    flattened; a per-batch mask becomes ``[B, Lk]`` rows. Under grad mode with
+    q, k or v requiring grad it takes ``flash_row_attention_trainable`` (lse
+    forward and backward kernels), otherwise ``flash_row_attention`` (the JAX
+    primal routes to the plain forward kernel the same way)."""
     dt = _dt(cfg.dtype)
     q = _proj(q_in, p["wq"], dt)
     lead = q.shape[:-3]
@@ -132,7 +213,10 @@ def _attn_core_flash(cfg: TabICAConfig, p: Params, q_in, k, v, kv_mask):
         mf = kv_mask
     else:
         mf = kv_mask[..., None, :].broadcast_to(lead + (lk,)).reshape(-1, lk)
-    out = flash_row_attention(qf, kf, vf, mf).reshape(lead + (lq, h, hd))
+    trainable = torch.is_grad_enabled() and (qf.requires_grad or kf.requires_grad
+                                             or vf.requires_grad)
+    attn = flash_row_attention_trainable if trainable else flash_row_attention
+    out = attn(qf, kf, vf, mf).reshape(lead + (lq, h, hd))
     return _out_proj(out, p["wo"], p["bo"])
 
 
@@ -186,6 +270,13 @@ def _block_qry(cfg, p, h_qry, kv_cache, token_mask, ctx_mask):
     return _mlp_step(cfg, p, hq.transpose(-3, -2))
 
 
+def _block_joint(cfg, blocks, i, h_ctx, h_qry, token_mask, ctx_mask):
+    """Layer ``i`` on context and query rows (the unit ``remat`` recomputes)."""
+    p = layer(blocks, i)
+    h_ctx, kv = _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask)
+    return h_ctx, _block_qry(cfg, p, h_qry, kv, token_mask, ctx_mask)
+
+
 # ---------------------------------------------------------------------------
 # Embedding and head
 # ---------------------------------------------------------------------------
@@ -235,20 +326,31 @@ def _token_mask(feat_mask):
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def forward(cfg: TabICAConfig, params: Params, x_ctx, y_ctx, x_qry,
-            feat_mask=None, ctx_mask=None):
-    """Joint forward: bar logits ``[..., Q, num_bars]``."""
+            feat_mask=None, ctx_mask=None, remat: bool = False, with_moe_aux: bool = False):
+    """Joint forward: bar logits ``[..., Q, num_bars]``, differentiable.
+
+    ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of the layer
+    body). ``with_moe_aux`` returns ``(logits, aux)``; aux is the MoE
+    load-balance loss, 0.0 for the dense models the port runs.
+    """
     _check_supported(cfg)
     feat_mask, token_mask, ctx_mask = _masks(x_ctx, feat_mask, ctx_mask)
     e = params["embed"]
     h_ctx = _embed_ctx(cfg, e, x_ctx, y_ctx, feat_mask)
     h_qry = _embed_qry(cfg, e, x_qry, feat_mask)
     for i in range(cfg.num_layers):
-        p = layer(params["blocks"], i)
-        h_ctx, kv = _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask)
-        h_qry = _block_qry(cfg, p, h_qry, kv, token_mask, ctx_mask)
-    return _head(cfg, params["head"], h_qry)
+        args = (cfg, params["blocks"], i, h_ctx, h_qry, token_mask, ctx_mask)
+        if remat:
+            h_ctx, h_qry = checkpoint(_block_joint, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            h_ctx, h_qry = _block_joint(*args)
+    logits = _head(cfg, params["head"], h_qry)
+    if with_moe_aux:
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits
 
 
 @torch.no_grad()

@@ -1,9 +1,17 @@
 // Row-axis flash attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel npe_pfn_tpu/ops/flash_attention.py::_flash_kernel
-// as driven by _flash_fwd(with_lse=False) / flash_row_attention: for every
-// (batch, head) it computes softmax(q k^T * hd^-0.5 + mask) v with an online
-// softmax, so the [Lq, Lk] score matrix never reaches device memory.
+// in both of its variants: _flash_fwd(with_lse=False) / flash_row_attention
+// (entry point flash_row_attention_fwd) and _flash_fwd(with_lse=True) /
+// _flash_fwd_lse, the forward of the trainable path (entry point
+// flash_row_attention_fwd_lse). For every (batch, head) it computes
+// softmax(q k^T * hd^-0.5 + mask) v with an online softmax, so the [Lq, Lk]
+// score matrix never reaches device memory. The lse variant also writes the
+// per-query logsumexp m + log(max(l, 1e-30)) as f32 [B, H, Lq] at the
+// finalize step (the TPU kernel's lane-broadcast [B*H, Lq, hd] block is a
+// Mosaic tiling artefact and is not carried over). One template flag, LSE,
+// selects the variant; with LSE false the kernel is the inference kernel,
+// instruction for instruction.
 //
 // Semantics kept from the TPU kernel:
 //   - scores, running max m, running sum l and the output accumulator are f32;
@@ -180,9 +188,9 @@ struct Args {
   float scale;
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(NTHREADS)
-flash_row_attention_kernel(const Args a) {
+flash_row_attention_kernel(const Args a, float* __restrict__ lse) {
   using L = Layout<T, HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::q_off);
@@ -276,31 +284,47 @@ flash_row_attention_kernel(const Args a) {
       op[(int64_t)(q0 + r) * a.o_sl + c] = from_f32<T>(sO[r * L::LDO + c] / l);
     }
   }
+  if constexpr (LSE) {
+    // lse [B, H, Lq] f32: lanes 0-15 write this warp's 16 rows.
+    if (lane < 16 && q0 + r0 + lane < a.Lq) {
+      const int r = r0 + lane;
+      lse[(int64_t)bh * a.Lq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+    }
+  }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, int HD, bool LSE>
+cudaError_t launch(const Args& a, float* lse, cudaStream_t stream) {
   using L = Layout<T, HD>;
   static bool configured = false;  // per instantiation, one device per process
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_row_attention_kernel<T, HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_row_attention_kernel<T, HD, LSE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)L::bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(a.B * a.H, (a.Lq + BM - 1) / BM);
-  flash_row_attention_kernel<T, HD><<<grid, NTHREADS, L::bytes, stream>>>(a);
+  flash_row_attention_kernel<T, HD, LSE><<<grid, NTHREADS, L::bytes, stream>>>(a, lse);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
+template <typename T, bool LSE>
+cudaError_t dispatch_hd(int hd, const Args& a, float* lse, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(a, stream);
-    case 32: return launch<T, 32>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 16: return launch<T, 16, LSE>(a, lse, stream);
+    case 32: return launch<T, 32, LSE>(a, lse, stream);
+    case 128: return launch<T, 128, LSE>(a, lse, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool LSE>
+int dispatch(int dtype, int head_dim, const Args& a, float* lse, cudaStream_t s) {
+  switch (dtype) {
+    case 0: return (int)dispatch_hd<float, LSE>(head_dim, a, lse, s);
+    case 1: return (int)dispatch_hd<__nv_bfloat16, LSE>(head_dim, a, lse, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -317,12 +341,20 @@ extern "C" int flash_row_attention_fwd(
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, mask, o, B, H, Lq, Lk, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,
                v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, mask_sb, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch_hd<float>(head_dim, a, s);
-    case 1: return (int)dispatch_hd<__nv_bfloat16>(head_dim, a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(dtype, head_dim, a, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// As flash_row_attention_fwd, and also writes lse, f32 [B, H, Lq] contiguous.
+extern "C" int flash_row_attention_fwd_lse(
+    int dtype, int head_dim, const void* q, const void* k, const void* v, const float* mask,
+    void* o, float* lse, int B, int H, int Lq, int Lk, long long q_sb, long long q_sl,
+    long long q_sh, long long k_sb, long long k_sl, long long k_sh, long long v_sb,
+    long long v_sl, long long v_sh, long long o_sb, long long o_sl, long long o_sh,
+    long long mask_sb, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, mask, o, B, H, Lq, Lk, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,
+               v_sb, v_sl, v_sh, o_sb, o_sl, o_sh, mask_sb, scale};
+  return dispatch<true>(dtype, head_dim, a, lse, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_row_attention_error_string(int err) {

@@ -19,6 +19,7 @@ from npe_pfn_tpu_torch import NPEPFN
 from npe_pfn_tpu_torch.models import TabICAConfig, TabICAModel, bar_distribution, transformer
 from npe_pfn_tpu_torch.models.checkpoint import params_from_numpy
 from npe_pfn_tpu_torch.ops import flash_attention as fa
+from npe_pfn_tpu_torch.utils import pytree_io
 from torch_parity import cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -151,3 +152,98 @@ def test_npepfn_samples_on_card(cuda_device):
     assert torch.isfinite(s).all() and torch.isfinite(lp).all()
     # 3 dims x 2 layers x (1 encode + 2 decode chunks of 256)
     assert fa.flash_row_attention.launches - before == 18
+
+
+# --- Training path: lse forward, backward, autograd Function ---------------
+# Gradient tolerance, max |kernel - plain| / max |plain|: f32 1e-5 (f32 FMA in
+# both, sums in another order), bf16 2e-2 (the kernel rounds P and dS to
+# bf16 before their products; the plain version keeps f32).
+
+
+def _qkv_do(b, lq, lk, h, hd, dtype, gen, dev):
+    return tuple(torch.randn(s, generator=gen, device=dev).to(dtype)
+                 for s in ((b, lq, h, hd), (b, lk, h, hd), (b, lk, h, hd), (b, lq, h, hd)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,hd,kind", CASES)
+def test_lse_and_backward_kernels_match_plain(cuda_device, dtype, b, lq, lk, h, hd, kind):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, d_out = _qkv_do(b, lq, lk, h, hd, dtype, gen, cuda_device)
+    m = _mask(kind, b, lk, gen, cuda_device)
+    launches = (fa.flash_row_attention_lse.launches, fa.flash_row_attention_bwd.launches)
+    out, lse = fa.flash_row_attention_lse(q, k, v, m)
+    grads = fa.flash_row_attention_bwd(q, k, v, m, out, lse, d_out)
+    torch.cuda.synchronize()
+    assert (fa.flash_row_attention_lse.launches, fa.flash_row_attention_bwd.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    ref_out, ref_lse = fa.reference_row_attention_lse(q.float(), k.float(), v.float(), m)
+    gate = fa._any_valid_gate(m, torch.float32)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref_out * gate, rtol=tol, atol=tol)
+    valid = (m.float().sum(dim=-1) > 0).expand(b)  # batch rows with a valid key
+    torch.testing.assert_close(lse[valid], ref_lse[valid], rtol=1e-5, atol=1e-5)
+    ref_grads = fa.reference_row_attention_bwd(q, k, v, m, out, lse, d_out)
+    grad_tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, r in zip(grads, ref_grads):
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= grad_tol * scale if scale > 0 else err == 0
+
+
+def test_backward_repeats_bit_for_bit(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, d_out = _qkv_do(16, 300, 300, 2, 128, torch.bfloat16, gen, cuda_device)
+    m = _mask("batch", 16, 300, gen, cuda_device)
+    out, lse = fa.flash_row_attention_lse(q, k, v, m)
+    first = fa.flash_row_attention_bwd(q, k, v, m, out, lse, d_out)
+    second = fa.flash_row_attention_bwd(q, k, v, m, out, lse, d_out)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_no_grad_kernel_raises_under_grad(cuda_device):
+    """The inference kernel's output has no grad_fn: a CUDA call that would
+    need one raises instead of silently dropping the gradient."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, _ = _qkv_do(2, 64, 64, 2, 32, torch.float32, gen, cuda_device)
+    m = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="flash_row_attention_trainable"):
+        fa.flash_row_attention(q, k, v, m)
+    with torch.no_grad():
+        fa.flash_row_attention(q, k, v, m)
+    out = fa.flash_row_attention_trainable(q, k, v, m)
+    (g,) = torch.autograd.grad(out.sum(), (q,))
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_gradients_kernel_path_match_dense(cuda_device, remat):
+    """f32 model: loss and gradients of batch_loss through the kernels
+    ('auto' on CUDA) against the dense path ('off'); per-step launch counts."""
+    from npe_pfn_tpu_torch.pretrain import prior, train
+
+    model = _random_model()
+    pcfg = prior.PriorConfig(num_features=12, num_ctx=200, num_qry=40, max_active_features=10)
+    batch = prior.sample_tasks(torch.Generator(device=cuda_device).manual_seed(7), 3, pcfg)
+    results = {}
+    for flash in ("auto", "off"):
+        cfg = dataclasses.replace(model.cfg, flash=flash)
+        named = {n: p.detach().requires_grad_(True)
+                 for n, p in pytree_io.flatten(model.params).items()}
+        leaves = list(named.values())
+        params = pytree_io.unflatten(named)
+        before = (fa.flash_row_attention_lse.launches, fa.flash_row_attention_bwd.launches)
+        loss = train.batch_loss(cfg, model.borders, params, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        used = (fa.flash_row_attention_lse.launches - before[0],
+                fa.flash_row_attention_bwd.launches - before[1])
+        n = model.cfg.num_layers
+        # The last layer's context row attention feeds only the final context
+        # state, which the loss never reads: autograd skips its backward.
+        assert used == (((4 if remat else 2) * n, 2 * n - 1) if flash == "auto" else (0, 0))
+        results[flash] = (loss, grads)
+    torch.testing.assert_close(results["auto"][0], results["off"][0], rtol=1e-4, atol=1e-5)
+    for g, r in zip(results["auto"][1], results["off"][1]):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-5)

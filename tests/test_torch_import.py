@@ -28,6 +28,8 @@ def test_import_loads_no_jax():
     code = (
         "import sys, npe_pfn_tpu_torch, npe_pfn_tpu_torch.estimator\n"
         "import npe_pfn_tpu_torch.ops.flash_attention, npe_pfn_tpu_torch.ops._build\n"
+        "import npe_pfn_tpu_torch.pretrain.train, npe_pfn_tpu_torch.pretrain.__main__\n"
+        "import npe_pfn_tpu_torch.pretrain.warmstart, npe_pfn_tpu_torch.utils.pytree_io\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "assert not bad, bad\n"
