@@ -35,6 +35,7 @@ _BWD_SOURCE = "flash_row_attention_bwd.cu"
 _HEAD_DIMS = (16, 32, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
+_BWD_BLOCK_K = 1024  # keys per block of the plain backward, as in the JAX _trainable_bwd
 
 
 def _masked_scores(q, k, kv_mask):
@@ -71,11 +72,11 @@ def reference_row_attention_lse(q, k, v, kv_mask):
     return _attend(s, v, q.dtype), torch.logsumexp(s, dim=-1)
 
 
-def reference_row_attention_bwd(q, k, v, kv_mask, out, lse, d_out, block_k=1024):
+def reference_row_attention_bwd(q, k, v, kv_mask, out, lse, d_out):
     """Plain version of the backward: ``(dq, dk, dv)`` in the inputs' dtypes.
 
     A line-for-line counterpart of the JAX ``_trainable_bwd``: everything in
-    f32, P recomputed from ``lse`` one block of ``block_k`` keys at a time,
+    f32, P recomputed from ``lse`` one block of ``_BWD_BLOCK_K`` keys at a time,
     delta = rowsum(dO * out), and dO zeroed for batch rows with no valid key.
     ``out`` is the gated forward output. The mask gets no gradient.
     """
@@ -94,8 +95,9 @@ def reference_row_attention_bwd(q, k, v, kv_mask, out, lse, d_out, block_k=1024)
     vh = v.transpose(1, 2).to(f32)
     dq = torch.zeros_like(qh)
     dk, dv = [], []
-    for k0 in range(0, lk, block_k):
-        kb, vb, mb = kh[:, :, k0:k0 + block_k], vh[:, :, k0:k0 + block_k], mask2[:, k0:k0 + block_k]
+    bk = _BWD_BLOCK_K
+    for k0 in range(0, lk, bk):
+        kb, vb, mb = kh[:, :, k0:k0 + bk], vh[:, :, k0:k0 + bk], mask2[:, k0:k0 + bk]
         s = torch.einsum("bhqd,bhkd->bhqk", qh, kb) * scale
         s = s + (1.0 - mb)[:, None, None, :] * _NEG_INF
         p = torch.exp(s - lse[..., None])

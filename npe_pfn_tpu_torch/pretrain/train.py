@@ -187,10 +187,10 @@ def apply_updates(params, updates):
 
 def batch_loss(cfg: TabICAConfig, borders, params, batch: prior.TaskBatch,
                remat: bool = True, moe_aux_weight: float = 0.01):
-    """Mean query-row NLL in context-normalized target space (plus the
-    weighted MoE aux loss when cfg.num_experts > 0). Each dataset is
-    normalized by its own masked context statistics; normalized query
-    targets are clipped to ``±cfg.bar_range``."""
+    """Mean query-row NLL in context-normalized target space, plus the
+    weighted MoE aux loss (0 for the dense models the port runs). Each
+    dataset is normalized by its own masked context statistics; normalized
+    query targets are clipped to ``±cfg.bar_range``."""
     stats = regressor.compute_stats(batch.x_ctx, batch.y_ctx, batch.ctx_mask)
     fm = batch.feat_mask[:, None, :]
     xn_c = regressor.normalize_x(stats, batch.x_ctx) * fm
@@ -199,10 +199,7 @@ def batch_loss(cfg: TabICAConfig, borders, params, batch: prior.TaskBatch,
     yn_q = regressor.normalize_y(stats, batch.y_qry).clamp(-cfg.bar_range, cfg.bar_range)
     logits, aux = transformer.forward(cfg, params, xn_c, yn_c, xn_q, batch.feat_mask,
                                       batch.ctx_mask, remat, with_moe_aux=True)
-    loss = bar.nll(borders, logits, yn_q).mean()
-    if cfg.num_experts > 0:
-        loss = loss + moe_aux_weight * aux
-    return loss
+    return bar.nll(borders, logits, yn_q).mean() + moe_aux_weight * aux
 
 
 def train_step(cfg: TabICAConfig, tcfg: TrainConfig, pcfg: prior.PriorConfig, params,

@@ -101,7 +101,7 @@ def test_empty_shared_mask_gives_zero_output_and_gradient():
 
 
 @pytest.mark.parametrize("block_k", [16, 1024])
-def test_plain_backward_blocks_agree_with_autograd_of_plain_forward(block_k):
+def test_plain_backward_blocks_agree_with_autograd_of_plain_forward(block_k, monkeypatch):
     """The chunked plain backward is the gradient of the plain forward, for any
     key block size (the ragged last block included)."""
     q, k, v, d_out = _qkv(3, 20, 37, 2, 16, seed=5)
@@ -111,8 +111,8 @@ def test_plain_backward_blocks_agree_with_autograd_of_plain_forward(block_k):
     ref_grads = torch.autograd.grad(ref, (qt, kt, vt), t(d_out))
     out, lse = tfa.reference_row_attention_lse(t(q), t(k), t(v), t(m))
     out = out * tfa._any_valid_gate(t(m), torch.float32)
-    grads = tfa.reference_row_attention_bwd(t(q), t(k), t(v), t(m), out, lse, t(d_out),
-                                            block_k=block_k)
+    monkeypatch.setattr(tfa, "_BWD_BLOCK_K", block_k)
+    grads = tfa.reference_row_attention_bwd(t(q), t(k), t(v), t(m), out, lse, t(d_out))
     for g, r in zip(grads, ref_grads):
         np.testing.assert_allclose(g.numpy(), r.numpy(), **TOL)
 
