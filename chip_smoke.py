@@ -3,33 +3,42 @@
 
     python3 chip_smoke.py
 
+Each kernel source holds two designs, picked by dtype and head_dim
+(flash_attention.kernel_design): "wgmma" (Hopper: TMA, mbarrier ring, wgmma
+with register accumulators) for bf16 at head_dim 128, the shape both paths
+run, and "wmma" for f32 and head_dim 16/32.
+
 Phases, each printing its own lines:
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: nvcc builds the row flash-attention kernel from the checkout;
+  2. build: nvcc builds the kernel sources from the checkout, in parallel;
+     registers and spills per kernel from the -Xptxas -v log;
   3. the kernel against its plain PyTorch version on the card, over the
      main-path shapes, ragged lengths, per-batch and empty masks, head_dim
-     16/32/128 and f32 inputs;
-  4. the kernel's time at the main-path decode shape beside its bound, the
-     plain version's time and scaled_dot_product_attention's (a yardstick
-     only: the port never calls it);
+     16/32/128 and f32 inputs (both designs);
+  4. the kernel's time at the two main-path shapes (B 17 and 25) beside its
+     bound, TFLOP/s, share of the bound, registers and spills, the plain
+     version's time and scaled_dot_product_attention's (a yardstick only:
+     the port never calls it);
   5. the main path at full width: the shipped checkpoint in bf16, 10k
      gaussian_linear simulations, NPEPFN(filter_context_size=2048,
      qry_chunk=2048) serving three sample(10_240) requests, each of which
      must launch the kernel 480 times (10 dims x 8 layers x (1 encode + 5
-     decode chunks)); samples are checked against the analytic posterior;
+     decode chunks)), every launch the wgmma design's; samples are checked
+     against the analytic posterior;
   6. autoregressive_log_prob of one request's samples through the kernel
      (flash="auto") against the dense path (flash="off");
   7. the training kernels (the lse forward and the backward) against their
      plain versions: the two training shapes, ragged, per-batch and empty
      masks, head_dim 16/32/128, bf16 and f32, and two backward calls that
      must agree bit for bit;
-  8. their times at the training shapes beside their bounds, the plain
-     versions' and scaled_dot_product_attention's (a yardstick only);
+  8. their times at the training shapes beside their bounds, TFLOP/s, share
+     of the bound, registers and spills, the plain versions' and
+     scaled_dot_product_attention's (a yardstick only);
   9. the training path at full width: tabica_v6_best warm-started into the
      pretrain_v7 recipe (8 datasets of 768 + 128 rows, bf16, remat), 1 + 20
      train_steps with finite loss and gradient norm and exactly 32 lse and 15
-     backward launches per step; then train.train() for 3 steps with a
-     validation and checkpoints in a temporary directory;
+     backward launches per step, all of the wgmma design; then train.train()
+     for 3 steps with a validation and checkpoints in a temporary directory;
  10. one fixed batch: loss and gradients through the kernels against the
      dense path with f32 scores;
  11. the NLL of tabica_v6_best on 4 x 32 tasks of the port's prior at lr 0,
@@ -48,8 +57,8 @@ import subprocess
 import sys
 import time
 
-# The whole run, nvcc builds included, took 70-76 s on an H100 (PERF.md);
-# 450 s leaves a margin of about 6x and still ends a hang (exit != 0, with a
+# The whole run, nvcc builds included, took 70-89 s on an H100 (PERF.md);
+# 450 s leaves a margin of about 5x and still ends a hang (exit != 0, with a
 # message) long before any outer time limit would cut the run.
 DEADLINE_S = 450
 
@@ -117,8 +126,30 @@ def phase_device():
     return smi
 
 
+# The wgmma design's kernels, by a piece of their mangled names in the ptxas log.
+WGMMA_KERNELS = {"fwd": "2wg10fwd_kernelILb0E", "fwd_lse": "2wg10fwd_kernelILb1E",
+                 "dkdv": "2wg11dkdv_kernel", "dq": "2wg9dq_kernel"}
+
+
+def ptxas_kernels(build_log):
+    """{mangled entry name: (registers, spill store bytes, spill load bytes)}
+    from an ``-Xptxas -v`` log."""
+    out, name, spill = {}, None, (0, 0)
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif "bytes spill stores" in line and name:
+            parts = line.replace(",", "").split()
+            spill = (int(parts[parts.index("spill") - 2]), int(parts[-4]))
+        elif "Used" in line and "registers" in line and name:
+            out[name] = (int(line.split("Used")[1].split("registers")[0]), *spill)
+            name = None
+    return out
+
+
 def phase_build():
-    """Build every kernel source at once, one nvcc process each."""
+    """Build every kernel source at once, one nvcc process each; returns the
+    wgmma kernels' registers and spills, {short name: (regs, stores, loads)}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from npe_pfn_tpu_torch.ops import _build
@@ -126,14 +157,33 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         results = list(pool.map(_build.build, SOURCES))
+    regs_of = {}
     for path, seconds, build_log in results:
-        regs = sorted({line.split("Used")[1].split(",")[0].strip()
-                       for line in build_log.splitlines() if "Used" in line and "registers" in line})
-        spills = [line.strip() for line in build_log.splitlines()
-                  if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+        kernels = ptxas_kernels(build_log)
+        regs = sorted({r for r, _, _ in kernels.values()})
+        spills = sorted({(st, ld) for _, st, ld in kernels.values() if st or ld})
         log(f"build: {path.name} nvcc {seconds:.1f} s ({'built' if seconds else 'cached'}); "
-            f"registers per thread {regs}; spills: {spills or 'none'}")
+            f"{len(kernels)} kernels, registers per thread {regs}; spill stores/loads (bytes) "
+            f"{spills or 'none'}")
+        for short, piece in WGMMA_KERNELS.items():
+            for name, info in kernels.items():
+                if piece in name:
+                    regs_of[short] = info
+        for line in build_log.splitlines():
+            if "C7512" in line or "C7508" in line:  # wgmma serialised / setmaxnreg ignored
+                log(f"build: ptxas: {line.split(':', 1)[1].strip()[:160]}")
+    for short, (r, st, ld) in regs_of.items():
+        log(f"build: wgmma design {short}: {r} registers at launch, spill stores {st} B, "
+            f"spill loads {ld} B")
+    if set(regs_of) != set(WGMMA_KERNELS):
+        raise AssertionError(f"ptxas log lacks wgmma kernels: {set(WGMMA_KERNELS) - set(regs_of)}")
     log(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.1f} s wall")
+    return regs_of
+
+
+def _regs(regs_of, *names):
+    return "; ".join(f"{n} {regs_of[n][0]} regs, spills {regs_of[n][1]}/{regs_of[n][2]} B"
+                     for n in names)
 
 
 def _inputs(b, lq, lk, h, hd, dtype, mask_kind, gen):
@@ -208,33 +258,36 @@ def phase_kernel_parity():
     return main_err
 
 
-def phase_kernel_time():
+def phase_kernel_time(regs_of):
+    """The inference kernel at the path's two shapes: B 25 (one decode chunk
+    of a width-24 step, the kernels line's main shape) and B 17."""
     import torch
     import torch.nn.functional as F
 
     from npe_pfn_tpu_torch.ops import flash_attention as fa
 
-    b, lq, lk, h, hd = 25, 2048, 2048, 2, 128  # one decode chunk of a width-24 step
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, m = _inputs(b, lq, lk, h, hd, torch.bfloat16, "all", gen)
-    ms = cuda_time_ms(lambda: fa.flash_row_attention(q, k, v, m))
-    plain_ms = cuda_time_ms(lambda: fa.reference_row_attention(q, k, v, m), iters=5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    mask4 = m[None, None, None, :]
-    library_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4))
-    flops = 4.0 * b * h * lq * int(m.sum()) * hd
-    nbytes = 2.0 * (2 * b * lq * h * hd + 2 * b * lk * h * hd) + m.numel()
-    bound_flops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bound_bytes_ms = nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(bound_flops_ms, bound_bytes_ms)
-    bound_by = "operations" if bound_flops_ms >= bound_bytes_ms else "bytes"
-    log(f"kernel time [B{b} Lq{lq} Lk{lk} H{h} hd{hd} bf16]: {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms by {bound_by} "
-        f"({flops:.3e} FLOP, {nbytes:.3e} B); plain {plain_ms:.4f} ms; "
-        f"scaled_dot_product_attention {library_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    rows = {}
+    for b in (25, 17):
+        lq, lk, h, hd = 2048, 2048, 2, 128
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        q, k, v, m = _inputs(b, lq, lk, h, hd, torch.bfloat16, "all", gen)
+        ms = cuda_time_ms(lambda: fa.flash_row_attention(q, k, v, m))
+        plain_ms = cuda_time_ms(lambda: fa.reference_row_attention(q, k, v, m), iters=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask4 = m[None, None, None, :]
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask4))
+        flops = 4.0 * b * h * lq * int(m.sum()) * hd
+        nbytes = 2.0 * (2 * b * lq * h * hd + 2 * b * lk * h * hd) + m.numel()
+        bound_ms, bound_by = _attention_bound(flops, nbytes)
+        log(f"kernel time [B{b} Lq{lq} Lk{lk} H{h} hd{hd} bf16, "
+            f"{fa.kernel_design(q.dtype, hd)}]: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound_ms / ms:.1%} of the bound); bound {bound_ms:.4f} ms by {bound_by} "
+            f"({flops:.3e} FLOP, {nbytes:.3e} B); plain {plain_ms:.4f} ms; "
+            f"scaled_dot_product_attention {library_ms:.4f} ms; {_regs(regs_of, 'fwd')}")
+        rows[f"B{b}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+    return rows
 
 
 # Phase 7 tolerances. lse (f32 either way): 1e-5 x max(1, |lse|), the
@@ -358,7 +411,7 @@ def _attention_bound(flops, nbytes):
     return max(bound_flops_ms, bound_bytes_ms), by
 
 
-def phase_train_kernel_time():
+def phase_train_kernel_time(regs_of):
     """Times of the lse forward and the backward at the two training shapes,
     beside their bounds, plain versions and scaled_dot_product_attention
     (forward, and forward + backward through autograd; a yardstick only)."""
@@ -399,15 +452,20 @@ def phase_train_kernel_time():
         fwd_work = (4.0 * pairs * hd, 2 * qo_bytes + 2 * kv_bytes + small)
         bwd_work = (10.0 * pairs * hd, 4 * qo_bytes + 4 * kv_bytes + small)
         fwd_bound, bwd_bound = _attention_bound(*fwd_work), _attention_bound(*bwd_work)
-        log(f"lse forward [{shape} B{b} Lq{lq} Lk{lk} H{h} hd{hd} bf16]: {fwd_ms:.4f} ms; bound "
-            f"{fwd_bound[0]:.4f} ms by {fwd_bound[1]} ({fwd_work[0]:.3e} FLOP, "
-            f"{fwd_work[1]:.3e} B); plain {plain_fwd_ms:.4f} ms; "
-            f"scaled_dot_product_attention forward {lib_fwd_ms:.4f} ms")
-        log(f"backward [{shape}]: {bwd_ms:.4f} ms; bound {bwd_bound[0]:.4f} ms by "
-            f"{bwd_bound[1]} ({bwd_work[0]:.3e} FLOP, {bwd_work[1]:.3e} B); plain "
-            f"{plain_bwd_ms:.4f} ms; scaled_dot_product_attention "
-            f"forward + backward {lib_fwd_bwd_ms:.4f} ms (port forward + backward "
-            f"{fwd_ms + bwd_ms:.4f} ms)")
+        design = fa.kernel_design(q.dtype, hd)
+        log(f"lse forward [{shape} B{b} Lq{lq} Lk{lk} H{h} hd{hd} bf16, {design}]: "
+            f"{fwd_ms:.4f} ms ({fwd_work[0] / fwd_ms / 1e9:.1f} TFLOP/s, "
+            f"{fwd_bound[0] / fwd_ms:.1%} of the bound); bound {fwd_bound[0]:.4f} ms by "
+            f"{fwd_bound[1]} ({fwd_work[0]:.3e} FLOP, {fwd_work[1]:.3e} B); plain "
+            f"{plain_fwd_ms:.4f} ms; scaled_dot_product_attention forward {lib_fwd_ms:.4f} ms; "
+            f"{_regs(regs_of, 'fwd_lse')}")
+        log(f"backward [{shape}, {design}]: {bwd_ms:.4f} ms ({bwd_work[0] / bwd_ms / 1e9:.1f} "
+            f"TFLOP/s of the five products, {bwd_bound[0] / bwd_ms:.1%} of the bound); bound "
+            f"{bwd_bound[0]:.4f} ms by {bwd_bound[1]} ({bwd_work[0]:.3e} FLOP, "
+            f"{bwd_work[1]:.3e} B); plain {plain_bwd_ms:.4f} ms; scaled_dot_product_attention "
+            f"forward + backward {lib_fwd_bwd_ms:.4f} ms, backward alone "
+            f"{lib_fwd_bwd_ms - lib_fwd_ms:.4f} ms (port forward + backward "
+            f"{fwd_ms + bwd_ms:.4f} ms); {_regs(regs_of, 'dkdv', 'dq')}")
         rows[shape] = {
             "lse": dict(ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
                         bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
@@ -477,7 +535,7 @@ def phase_train():
 
     counters = (fa.flash_row_attention, fa.flash_row_attention_lse, fa.flash_row_attention_bwd)
     for c in counters:
-        c.launches = 0
+        c.launches = c.wgmma_launches = c.wmma_launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     losses, gnorms = [], []
     torch.cuda.synchronize()
@@ -489,6 +547,7 @@ def phase_train():
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    by_design = {c.__name__: (c.wgmma_launches, c.wmma_launches) for c in counters}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     losses, gnorms = torch.stack(losses).tolist(), torch.stack(gnorms).tolist()
     if not all(math.isfinite(x) for x in losses + gnorms):
@@ -505,9 +564,11 @@ def phase_train():
         f"{TRAIN_STEPS * tokens / seconds:.1f} tokens/s ({tokens} cell tokens per step); peak "
         f"memory {peak_gb:.3f} GB; loss {losses[0]:.4f}..{losses[-1]:.4f} (mean "
         f"{sum(losses) / len(losses):.4f}); gnorm {min(gnorms):.4f}..{max(gnorms):.4f}; "
-        f"launches {launches} (expected {want})")
+        f"launches {launches} (expected {want}); (wgmma, wmma) {by_design}")
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if any(by_design[n] != (want[n], 0) for n in want):
+        raise AssertionError(f"launches by design {by_design}: every one must be wgmma")
 
     # The trainer as a user runs it: warm start, log, validate, checkpoint.
     short = dataclasses.replace(tcfg, max_steps=3, warmup_steps=1, log_every=1, val_every=3,
@@ -658,30 +719,36 @@ def phase_main_path():
     log(f"main path: warm-up sample({num}) {time.perf_counter() - t0:.3f} s")
 
     flash_row_attention.launches = 0
+    flash_row_attention.wgmma_launches = flash_row_attention.wmma_launches = 0
     requests = []
     for i in range(3):
-        before = flash_row_attention.launches
+        before = (flash_row_attention.launches, flash_row_attention.wgmma_launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         samples = est.sample(num, x[i + 1], generator=torch.Generator(dev).manual_seed(100 + i))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = flash_row_attention.launches - before
+        launches = (flash_row_attention.launches - before[0],
+                    flash_row_attention.wgmma_launches - before[1])
         requests.append((x[i + 1], samples, seconds, launches))
     total_launches = flash_row_attention.launches
+    if flash_row_attention.wmma_launches:
+        raise AssertionError(f"{flash_row_attention.wmma_launches} launches of the wmma design")
 
     for i, (x_o, samples, seconds, launches) in enumerate(requests):
         if samples.shape != (num, 10) or not bool(torch.isfinite(samples).all()):
             raise AssertionError(f"request {i}: bad samples {tuple(samples.shape)}")
-        if launches != 480:
-            raise AssertionError(f"request {i}: {launches} kernel launches, expected 480")
+        if launches != (480, 480):
+            raise AssertionError(f"request {i}: (all, wgmma) kernel launches {launches}, "
+                                 f"expected (480, 480)")
         mu, sd = task.posterior_moments(x_o)
         mean_z = ((samples.mean(0) - mu).abs() / sd).max().item()
         ratio = samples.std(0) / sd
         ok = mean_z <= MAX_MEAN_Z and STD_RATIO[0] <= ratio.min().item() \
             and ratio.max().item() <= STD_RATIO[1]
         log(f"request {i}: sample({num}) {seconds:.4f} s = {num / seconds:.1f} samples/s; "
-            f"kernel launches {launches}; max |mean - posterior mean| / posterior std "
+            f"kernel launches {launches[0]} ({launches[1]} wgmma); max |mean - posterior mean| "
+            f"/ posterior std "
             f"{mean_z:.3f} (bound {MAX_MEAN_Z}); std / posterior std "
             f"{ratio.min().item():.3f}..{ratio.max().item():.3f} (bound {STD_RATIO}) "
             f"{'ok' if ok else 'FAIL'}")
@@ -737,14 +804,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    regs_of = phase_build()
     max_abs_err = phase_kernel_parity()
-    timing = phase_kernel_time()
+    timing = phase_kernel_time(regs_of)
     est, request, launches = phase_main_path()
     phase_path_parity(est, request)
     del est, request
     train_errs = phase_train_kernel_parity()
-    train_times = phase_train_kernel_time()
+    train_times = phase_train_kernel_time(regs_of)
     trained = phase_train()
     phase_train_path_parity()
     phase_prior_nll()
@@ -754,22 +821,27 @@ def main():
         "route": "cuda",
         "source": csrc + "flash_row_attention.cu",
         "replaces": "npe_pfn_tpu/ops/flash_attention.py:34",
+        "design": "wgmma",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        **timing,
+        **timing["B25"], "B17": timing["B17"],
+        "registers": regs_of["fwd"][0], "spill_bytes": regs_of["fwd"][1],
     }]
     # Training kernels: launches over the 20 timed steps; times at the context
     # shape (B 264, 768 x 768), the query shape's under "query".
-    for name, key, source, replaces in (
+    for name, key, source, replaces, parts in (
         ("flash_row_attention_lse", "lse", "flash_row_attention.cu",
-         "npe_pfn_tpu/ops/flash_attention.py:257"),
+         "npe_pfn_tpu/ops/flash_attention.py:257", ("fwd_lse",)),
         ("flash_row_attention_bwd", "bwd", "flash_row_attention_bwd.cu",
-         "npe_pfn_tpu/ops/flash_attention.py:284"),
+         "npe_pfn_tpu/ops/flash_attention.py:284", ("dkdv", "dq")),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
-            "launches": trained["launches"][name], "max_abs_err": train_errs[key],
+            "design": "wgmma", "launches": trained["launches"][name],
+            "max_abs_err": train_errs[key],
             **train_times["context"][key], "query": train_times["query"][key],
+            "registers": max(regs_of[p][0] for p in parts),
+            "spill_bytes": sum(regs_of[p][1] for p in parts),
         })
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each kernel source under ``ops/csrc/`` exposes a plain ``extern "C"``
-interface, so it compiles in seconds with nvcc alone (no PyTorch headers) into
+interface (the sources share ``csrc/*.cuh`` headers), so it compiles in seconds with nvcc alone (no PyTorch headers) into
 a shared library that ``ctypes`` loads. Libraries go to the package's
 git-ignored ``_build/`` directory, named by a hash of the source and the nvcc
 flags, and are built at first use. Nothing here runs at import time.
@@ -41,9 +41,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``source`` (a file name under ``csrc/``) builds to."""
+    """Where ``source`` (a file name under ``csrc/``) builds to: named by a
+    hash of the source, the headers beside it and the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}_{digest[:16]}.so"
 
 

@@ -19,14 +19,25 @@ version for tensors on the CPU and its kernel for tensors on a CUDA device; it
 never falls back from one to the other. Like the JAX wrappers, they apply the
 any-valid gate outside the kernel: a batch row whose keys are all masked
 returns zeros and gets zero gradients.
+
+Each source holds two designs, and ``kernel_design`` picks one from the dtype
+and head_dim before the launch: ``"wgmma"`` (Hopper: warp-specialised, TMA
+loads into an mbarrier ring, wgmma with register accumulators) for bf16 at
+head_dim 128, the only shape the shipped models run, and ``"wmma"`` (WMMA
+fragments, or FMA for f32) for f32 and head_dim 16 or 32. A failure of the
+chosen design raises; nothing gives way to the other design. Each wrapper
+counts its kernel launches in ``.launches`` and, per design, in
+``.wgmma_launches`` and ``.wmma_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -36,6 +47,15 @@ _HEAD_DIMS = (16, 32, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _BWD_BLOCK_K = 1024  # keys per block of the plain backward, as in the JAX _trainable_bwd
+_WGMMA_TILE = 128  # the wgmma design's mask and lse rows are padded to a multiple of this
+_LOG2E = math.log2(math.e)
+DESIGNS = ("wgmma", "wmma")
+
+
+def kernel_design(dtype, head_dim):
+    """The kernel design a CUDA call with this dtype and head_dim launches:
+    ``"wgmma"`` for bf16 at head_dim 128, ``"wmma"`` otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "wmma"
 
 
 def _masked_scores(q, k, kv_mask):
@@ -138,7 +158,9 @@ def _library():
         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + common)
     lib.flash_row_attention_fwd_lse.argtypes = (
         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + common)
+    lib.flash_row_attention_fwd_wgmma.argtypes = [ctypes.c_void_p] * 6 + common
     lib.flash_row_attention_fwd.restype = lib.flash_row_attention_fwd_lse.restype = ctypes.c_int
+    lib.flash_row_attention_fwd_wgmma.restype = ctypes.c_int
     lib.flash_row_attention_error_string.restype = ctypes.c_char_p
     lib.flash_row_attention_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -152,6 +174,12 @@ def _bwd_library():
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fn = lib.flash_row_attention_bwd_wgmma
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.flash_row_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -181,48 +209,141 @@ def _check_kernel_inputs(q, k, v, kv_mask, *more):
         raise ValueError("kv length must be positive")
 
 
-def _mask_operand(kv_mask):
-    """The kernels' mask: f32 rows, and their stride (0 for a shared mask)."""
-    mask = kv_mask.to(torch.float32).contiguous()
+def _mask_operand(kv_mask, multiple=1):
+    """The kernels' mask: f32 rows, zero-padded to a multiple of ``multiple``
+    keys, and their stride (0 for a shared mask)."""
+    mask = kv_mask.to(torch.float32)
+    pad = -mask.shape[-1] % multiple
+    mask = (F.pad(mask, (0, pad)) if pad else mask).contiguous()
     return mask, (0 if mask.dim() == 1 else mask.shape[-1])
 
 
+def _tma_operand(t):
+    """``t``, or a contiguous copy where a dim longer than 1 has stride 0 (a
+    broadcast), which a TMA tensor map cannot describe."""
+    if any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape)):
+        return t.contiguous()
+    return t
+
+
+def _count(wrapper, design):
+    wrapper.launches += 1
+    name = f"{design}_launches"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _launch_wgmma(q, k, v, kv_mask, out, lse):
+    """The Hopper forward (bf16, head_dim 128); ``lse`` may be None."""
+    b, lq, h, hd = q.shape
+    q, k, v = (_tma_operand(t) for t in (q, k, v))
+    mask, mask_sb = _mask_operand(kv_mask, _WGMMA_TILE)
+    lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_row_attention_fwd_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, h, lq, k.shape[1],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        mask_sb, hd**-0.5, stream,
+    )
+    return lib, rc
+
+
+def _launch_wmma(q, k, v, kv_mask, out, lse):
+    """The WMMA/FMA forward (f32, or bf16 at head_dim 16 or 32)."""
+    b, lq, h, hd = q.shape
+    mask, mask_sb = _mask_operand(kv_mask)
+    lib = _library()
+    fn = lib.flash_row_attention_fwd if lse is None else lib.flash_row_attention_fwd_lse
+    extra = () if lse is None else (lse.data_ptr(),)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(
+        _DTYPE_CODES[q.dtype], hd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), *extra,
+        b, h, lq, k.shape[1],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        mask_sb, hd**-0.5, stream,
+    )
+    return lib, rc
+
+
+FWD_LAUNCHERS = {"wgmma": _launch_wgmma, "wmma": _launch_wmma}
+
+
 def _launch(q, k, v, kv_mask, with_lse=False):
-    """One launch of a forward kernel; returns the ungated output, and with
-    ``with_lse`` also lse ``[B, H, Lq]`` f32."""
+    """One launch of a forward kernel, of the design ``kernel_design`` picks;
+    returns the ungated output, and with ``with_lse`` also lse ``[B, H, Lq]``
+    f32."""
     _check_kernel_inputs(q, k, v, kv_mask)
     dev = q.device
     b, lq, h, hd = q.shape
-    lk = k.shape[1]
     out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=dev) if with_lse else None
     if out.numel() == 0:
         return (out, lse) if with_lse else out
-    mask, mask_sb = _mask_operand(kv_mask)
-    lib = _library()
-    fn = lib.flash_row_attention_fwd_lse if with_lse else lib.flash_row_attention_fwd
-    extra = (lse.data_ptr(),) if with_lse else ()
+    design = kernel_design(q.dtype, hd)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            _DTYPE_CODES[q.dtype], hd,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), *extra,
-            b, h, lq, lk,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            mask_sb, hd**-0.5, stream,
-        )
+        lib, rc = FWD_LAUNCHERS[design](q, k, v, kv_mask, out, lse)
     if rc != 0:
         err = lib.flash_row_attention_error_string
-        raise RuntimeError(f"flash_row_attention launch failed: {err(rc).decode()} ({rc})")
+        raise RuntimeError(f"flash_row_attention ({design}) launch failed: "
+                           f"{err(rc).decode()} ({rc})")
     if with_lse:
-        flash_row_attention_lse.launches += 1
+        _count(flash_row_attention_lse, design)
         return out, lse
-    flash_row_attention.launches += 1
+    _count(flash_row_attention, design)
     return out
 
 
+def _launch_bwd_wgmma(q, k, v, kv_mask, o, lse, do, dq, dk, dv):
+    """The Hopper backward (bf16, head_dim 128): delta, dK/dV and dQ kernels.
+    lse goes in times log2(e), padded with +inf past Lq; delta is zeroed."""
+    b, lq, h, hd = q.shape
+    q, k, v = (_tma_operand(t) for t in (q, k, v))
+    mask, mask_sb = _mask_operand(kv_mask, _WGMMA_TILE)
+    valid = (mask.sum(dim=-1, keepdim=True) > 0).to(torch.float32).reshape(-1)
+    lq_pad = -(-lq // _WGMMA_TILE) * _WGMMA_TILE
+    lse2 = F.pad(lse.reshape(b * h, lq) * _LOG2E, (0, lq_pad - lq), value=math.inf)
+    delta = torch.zeros((b * h, lq_pad), dtype=torch.float32, device=q.device)
+    lib = _bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_row_attention_bwd_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), valid.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, lq, k.shape[1], lq_pad,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        mask_sb, 0 if valid.numel() == 1 else 1, hd**-0.5, stream,
+    )
+    return lib, rc
+
+
+def _launch_bwd_wmma(q, k, v, kv_mask, o, lse, do, dq, dk, dv):
+    """The WMMA/FMA backward: delta, dK/dV and dQ kernels."""
+    b, lq, h, hd = q.shape
+    mask, mask_sb = _mask_operand(kv_mask)
+    valid = (mask.sum(dim=-1, keepdim=True) > 0).to(torch.float32).reshape(-1)
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    lib = _bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_row_attention_bwd(
+        _DTYPE_CODES[q.dtype], hd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), valid.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, lq, k.shape[1],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        mask_sb, 0 if valid.numel() == 1 else 1, hd**-0.5, stream,
+    )
+    return lib, rc
+
+
+BWD_LAUNCHERS = {"wgmma": _launch_bwd_wgmma, "wmma": _launch_bwd_wmma}
+
+
 def _launch_bwd(q, k, v, kv_mask, out, lse, d_out):
-    """One call of the backward entry point (delta, dK/dV and dQ kernels)."""
+    """One call of the backward entry point of the design ``kernel_design``
+    picks (delta, dK/dV and dQ kernels)."""
     _check_kernel_inputs(q, k, v, kv_mask, out, lse, d_out)
     dev = q.device
     b, lq, h, hd = q.shape
@@ -232,28 +353,17 @@ def _launch_bwd(q, k, v, kv_mask, out, lse, d_out):
     dv = torch.empty((b, lk, h, hd), dtype=v.dtype, device=dev)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    mask, mask_sb = _mask_operand(kv_mask)
-    valid = (mask.sum(dim=-1, keepdim=True) > 0).to(torch.float32).reshape(-1)
     o = out.to(q.dtype).contiguous()
     do = d_out.to(q.dtype).contiguous()
     lse = lse.to(torch.float32).contiguous()
-    delta = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
-    lib = _bwd_library()
+    design = kernel_design(q.dtype, hd)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_row_attention_bwd(
-            _DTYPE_CODES[q.dtype], hd,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), valid.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, lq, lk,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            mask_sb, 0 if valid.numel() == 1 else 1, hd**-0.5, stream,
-        )
+        lib, rc = BWD_LAUNCHERS[design](q, k, v, kv_mask, o, lse, do, dq, dk, dv)
     if rc != 0:
         err = lib.flash_row_attention_bwd_error_string
-        raise RuntimeError(f"flash_row_attention_bwd launch failed: {err(rc).decode()} ({rc})")
-    flash_row_attention_bwd.launches += 1
+        raise RuntimeError(f"flash_row_attention_bwd ({design}) launch failed: "
+                           f"{err(rc).decode()} ({rc})")
+    _count(flash_row_attention_bwd, design)
     return dq, dk, dv
 
 
@@ -338,6 +448,8 @@ def flash_row_attention_trainable(q, k, v, kv_mask):
     return _FlashRowAttention.apply(q, k, v, kv_mask)
 
 
-flash_row_attention.launches = 0
-flash_row_attention_lse.launches = 0
-flash_row_attention_bwd.launches = 0
+for _wrapper in (flash_row_attention, flash_row_attention_lse, flash_row_attention_bwd):
+    _wrapper.launches = 0
+    for _design in DESIGNS:
+        setattr(_wrapper, f"{_design}_launches", 0)
+del _wrapper, _design

@@ -270,3 +270,103 @@ def test_train_gradients_kernel_path_match_dense(cuda_device, remat):
     torch.testing.assert_close(results["auto"][0], results["off"][0], rtol=1e-4, atol=1e-5)
     for g, r in zip(results["auto"][1], results["off"][1]):
         torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-5)
+
+
+# --- The Hopper (wgmma) design at its edges: bf16, head_dim 128 ------------
+# Same tolerances as above: output 1e-2 elementwise and per slice, lse 1e-5,
+# gradients 2e-2 per slice (one-key rows' dq/dk against the tensor's max).
+
+EDGE = (1, 63, 64, 65, 127, 128, 129)  # around the 64- and 128-row tiles
+
+
+def _check_wgmma_fwd_bwd(q, k, v, m, d_out):
+    """Forward, lse forward and backward through the wgmma design against
+    the plain versions; every call must take that design."""
+    b = q.shape[0]
+    before = [(w.wgmma_launches, w.wmma_launches)
+              for w in (fa.flash_row_attention, fa.flash_row_attention_lse,
+                        fa.flash_row_attention_bwd)]
+    out_nolse = fa.flash_row_attention(q, k, v, m)
+    out, lse = fa.flash_row_attention_lse(q, k, v, m)
+    grads = fa.flash_row_attention_bwd(q, k, v, m, out, lse, d_out)
+    torch.cuda.synchronize()
+    after = [(w.wgmma_launches, w.wmma_launches)
+             for w in (fa.flash_row_attention, fa.flash_row_attention_lse,
+                       fa.flash_row_attention_bwd)]
+    assert all(a == (x + 1, y) for a, (x, y) in zip(after, before))
+    assert torch.equal(out_nolse, out)
+    ref_out, ref_lse = fa.reference_row_attention_lse(q.float(), k.float(), v.float(), m)
+    ref_out = ref_out * fa._any_valid_gate(m, torch.float32)
+    torch.testing.assert_close(out.float(), ref_out, rtol=1e-2, atol=1e-2)
+    assert _slice_rel_err(out, ref_out) <= 1e-2
+    valid = (m.float().sum(dim=-1) > 0).expand(b)
+    torch.testing.assert_close(lse[valid], ref_lse[valid], rtol=1e-5, atol=1e-5)
+    ref_grads = fa.reference_row_attention_bwd(q, k, v, m, out, lse, d_out)
+    one_key = (m.sum(dim=-1) == 1).reshape(-1).expand(b)
+    checks = list(zip(grads, ref_grads, (one_key, one_key, None)))
+    if bool(valid.any()) and bool(one_key[valid].all()):
+        # Every row has one key (Lk = 1): dq and dk are zero in exact
+        # arithmetic and rounding residue on both sides, so the tensor's own
+        # max is no scale; they are read against max |dv| instead.
+        scale = ref_grads[2].float().abs().max()
+        for g, r in zip(grads[:2], ref_grads[:2]):
+            assert (g.float() - r.float()).abs().max() <= 2e-2 * scale
+        checks = checks[2:]
+    for g, r, z in checks:
+        assert _slice_rel_err(g, r, z) <= 2e-2
+    empty = ~valid
+    for t in (out, *grads):
+        assert bool((t[empty] == 0).all())
+
+
+@pytest.mark.parametrize("lk", EDGE)
+@pytest.mark.parametrize("lq", EDGE)
+def test_wgmma_design_at_tile_edges(cuda_device, lq, lk):
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, d_out = _qkv_do(2, lq, lk, 2, 128, torch.bfloat16, gen, cuda_device)
+    _check_wgmma_fwd_bwd(q, k, v, _mask("batch", 2, lk, gen, cuda_device), d_out)
+
+
+def test_wgmma_design_ragged_long(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, d_out = _qkv_do(3, 1000, 1500, 2, 128, torch.bfloat16, gen, cuda_device)
+    _check_wgmma_fwd_bwd(q, k, v, _mask("shared", 3, 1500, gen, cuda_device), d_out)
+
+
+def test_wgmma_design_reads_strided_layout(cuda_device):
+    """bf16 head_dim 128 q/k/v as views into a [B, L, 3, H, hd] buffer, for
+    the forward and the backward (read through the strides, no copy)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    qkv = torch.randn(2, 300, 3, 2, 128, generator=gen, device=cuda_device).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    d_out = torch.randn(2, 300, 2, 128, generator=gen, device=cuda_device).bfloat16()
+    _check_wgmma_fwd_bwd(q, k, v, _mask("batch", 2, 300, gen, cuda_device), d_out)
+
+
+@pytest.mark.parametrize("kind", ["batch_one_key", "batch_empty_row", "shared_empty"])
+def test_wgmma_design_degenerate_masks(cuda_device, kind):
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, d_out = _qkv_do(4, 200, 333, 2, 128, torch.bfloat16, gen, cuda_device)
+    _check_wgmma_fwd_bwd(q, k, v, _mask(kind, 4, 333, gen, cuda_device), d_out)
+
+
+def test_wgmma_design_small_grid(cuda_device):
+    """B x H x tiles well below the card's 132 SMs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v, d_out = _qkv_do(1, 200, 260, 1, 128, torch.bfloat16, gen, cuda_device)
+    _check_wgmma_fwd_bwd(q, k, v, _mask("batch", 1, 260, gen, cuda_device), d_out)
+
+
+def test_other_shapes_take_the_wmma_design(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    m = torch.ones(96, dtype=torch.bool, device=cuda_device)
+    for dtype, hd in ((torch.float32, 128), (torch.bfloat16, 32), (torch.float32, 16)):
+        q, k, v, d_out = _qkv_do(2, 80, 96, 2, hd, dtype, gen, cuda_device)
+        before = (fa.flash_row_attention_lse.wmma_launches, fa.flash_row_attention_bwd.wmma_launches,
+                  fa.flash_row_attention_lse.wgmma_launches)
+        out, lse = fa.flash_row_attention_lse(q, k, v, m)
+        fa.flash_row_attention_bwd(q, k, v, m, out, lse, d_out)
+        assert (fa.flash_row_attention_lse.wmma_launches, fa.flash_row_attention_bwd.wmma_launches,
+                fa.flash_row_attention_lse.wgmma_launches) == (before[0] + 1, before[1] + 1,
+                                                               before[2])
