@@ -15,7 +15,8 @@ Phases, each printing its own lines:
   3. the kernel against its plain PyTorch version on the card, over the
      main-path shapes, ragged lengths, per-batch and empty masks, head_dim
      16/32/128 and f32 inputs (both designs);
-  4. the kernel's time at the two main-path shapes (B 17 and 25) beside its
+  4. the kernel's time at the main path's two shapes (B 17 and 25), the
+     ensemble decode's (B 100, 2048 x 512) and the precompute's (B 250) beside its
      bound, TFLOP/s, share of the bound, registers and spills, the plain
      version's time and scaled_dot_product_attention's (a yardstick only:
      the port never calls it);
@@ -43,7 +44,21 @@ Phases, each printing its own lines:
      dense path with f32 scores;
  11. the NLL of tabica_v6_best on 4 x 32 tasks of the port's prior at lr 0,
      inside a band calibrated on the CPU against the JAX prior, and a random
-     model's outside it.
+     model's outside it;
+ 12. sample_batched(1024) over 16 observations on a shared random context:
+     the Normal prior (one round) and a box prior that forces three rounds
+     and the escape hatch;
+ 13. log_prob of phase 5's samples against their own log-probs, and
+     log_prob_batched of phase 12's draws against theirs;
+ 14. sample_batched_filtered(1024) over 8 observations, each on its own
+     filtered context, in one stacked pass;
+ 15. sample(10_240) with 4 context members (quantile target and feature
+     maps) and with 2 factorization orders;
+ 16. serving.CachedPosterior: all 10 dims encoded in one call, then
+     decode-only sample(10_240) and log_prob.
+Phases 12-16 time each call, assert its exact launch count (all wgmma, none
+wmma, no training kernel) and hold samples to phase 5's posterior check and
+log-probs to a second reading of the same density.
 Then one JSON line of the kernels, and last {"ok": true, "device": {...}}.
 Any failure exits non-zero without the last line. It imports nothing of JAX.
 """
@@ -233,6 +248,10 @@ def phase_kernel_parity():
         ("f32 hd128", 2, 300, 700, 2, 128, f32, "batch"),
         ("f32 hd16 ragged", 3, 1000, 1500, 2, 16, f32, "shared"),
         ("f32 hd32 empty row", 4, 100, 250, 2, 32, f32, "batch_empty_row"),
+        # the shapes of the rest of the API (phases 12-16)
+        ("ensemble decode B100", 100, 2048, 512, 2, 128, bf16, "batch"),
+        ("filtered decode B200", 200, 1024, 2048, 2, 128, bf16, "batch"),
+        ("precompute B250", 250, 2048, 2048, 2, 128, bf16, "shared"),
     ]
     main_err = None
     for name, b, lq, lk, h, hd, dtype, mask_kind in cases:
@@ -258,17 +277,25 @@ def phase_kernel_parity():
     return main_err
 
 
+# Phase 4's shapes (bf16, H 2, hd 128): B 25 (one decode chunk of a width-24
+# step of sample(), the kernels line's main shape), B 17 (a width-16 step),
+# the context-ensemble decode (4 members x 25 tokens, 2048 queries against
+# 512 keys) and the CachedPosterior precompute (10 dims x 25 tokens).
+TIME_SHAPES = (("B25", 25, 2048, 2048), ("B17", 17, 2048, 2048),
+               ("B100_ensemble", 100, 2048, 512), ("B250_precompute", 250, 2048, 2048))
+
+
 def phase_kernel_time(regs_of):
-    """The inference kernel at the path's two shapes: B 25 (one decode chunk
-    of a width-24 step, the kernels line's main shape) and B 17."""
+    """The inference kernel at the paths' shapes, beside its bound, its plain
+    version and scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
 
     from npe_pfn_tpu_torch.ops import flash_attention as fa
 
     rows = {}
-    for b in (25, 17):
-        lq, lk, h, hd = 2048, 2048, 2, 128
+    for name, b, lq, lk in TIME_SHAPES:
+        h, hd = 2, 128
         gen = torch.Generator(device="cuda").manual_seed(1)
         q, k, v, m = _inputs(b, lq, lk, h, hd, torch.bfloat16, "all", gen)
         ms = cuda_time_ms(lambda: fa.flash_row_attention(q, k, v, m))
@@ -280,13 +307,14 @@ def phase_kernel_time(regs_of):
         flops = 4.0 * b * h * lq * int(m.sum()) * hd
         nbytes = 2.0 * (2 * b * lq * h * hd + 2 * b * lk * h * hd) + m.numel()
         bound_ms, bound_by = _attention_bound(flops, nbytes)
-        log(f"kernel time [B{b} Lq{lq} Lk{lk} H{h} hd{hd} bf16, "
+        log(f"kernel time [{name}: B{b} Lq{lq} Lk{lk} H{h} hd{hd} bf16, "
             f"{fa.kernel_design(q.dtype, hd)}]: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
             f"{bound_ms / ms:.1%} of the bound); bound {bound_ms:.4f} ms by {bound_by} "
             f"({flops:.3e} FLOP, {nbytes:.3e} B); plain {plain_ms:.4f} ms; "
             f"scaled_dot_product_attention {library_ms:.4f} ms; {_regs(regs_of, 'fwd')}")
-        rows[f"B{b}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, qt, kt, vt
     return rows
 
 
@@ -725,17 +753,18 @@ def phase_main_path():
         before = (flash_row_attention.launches, flash_row_attention.wgmma_launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        samples = est.sample(num, x[i + 1], generator=torch.Generator(dev).manual_seed(100 + i))
+        gen = torch.Generator(dev).manual_seed(100 + i)
+        samples, lps = est.sample(num, x[i + 1], generator=gen, return_log_probs=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = (flash_row_attention.launches - before[0],
                     flash_row_attention.wgmma_launches - before[1])
-        requests.append((x[i + 1], samples, seconds, launches))
+        requests.append((x[i + 1], samples, seconds, launches, lps))
     total_launches = flash_row_attention.launches
     if flash_row_attention.wmma_launches:
         raise AssertionError(f"{flash_row_attention.wmma_launches} launches of the wmma design")
 
-    for i, (x_o, samples, seconds, launches) in enumerate(requests):
+    for i, (x_o, samples, seconds, launches, _) in enumerate(requests):
         if samples.shape != (num, 10) or not bool(torch.isfinite(samples).all()):
             raise AssertionError(f"request {i}: bad samples {tuple(samples.shape)}")
         if launches != (480, 480):
@@ -754,7 +783,7 @@ def phase_main_path():
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"request {i}: samples disagree with the analytic posterior")
-    return est, requests[0], total_launches
+    return est, task, x, requests[0], total_launches
 
 
 def phase_path_parity(est, request):
@@ -763,7 +792,7 @@ def phase_path_parity(est, request):
     from npe_pfn_tpu_torch import estimator
     from npe_pfn_tpu_torch.ops.flash_attention import flash_row_attention
 
-    x_o, samples, _, _ = request
+    x_o, samples = request[:2]
     theta_ctx, x_ctx, ctx_mask = est.get_context(x_o)
     x_qry = x_o.broadcast_to((samples.shape[0], x_o.shape[0]))
     lps = {}
@@ -791,6 +820,278 @@ def phase_path_parity(est, request):
         raise AssertionError("the kernel path disagrees with the dense path")
 
 
+# Phases 12-16: the rest of the inference API at full width (the phase-5
+# estimator and simulations). Each path runs with every kernel counter at 0
+# and must launch the inference kernel exactly as often as its loops say, all
+# of the wgmma design:
+#   sample_batched(1024) over 16 observations, Normal prior: one round of
+#     16 x 1536 = 24,576 rows = 12 chunks of 2048: 10 dims x 8 layers x
+#     (1 encode + 12 decode) = 1040 per round;
+#   log_prob of 10,240 rows: 10 x 8 x (1 + 5) = 480; log_prob_batched of
+#     16 x 1024 rows, chunks of 10,240 and 6,144: 10 x 8 x (6 + 4) = 800;
+#   sample_batched_filtered(1024) over 8 observations, one stacked pass of
+#     1024 rows each: 10 x 8 x (1 + 1) = 160;
+#   sample(10_240) with 4 context members: 10 x 8 x (1 + 5) = 480 (all
+#     members in each launch); with 2 orders, 6,144 rows each: 2 x 10 x 8 x
+#     (1 + 3) = 640;
+#   CachedPosterior: 8 to encode all 10 dims at once, then 10 x 8 x 5 = 400
+#     per sample(10_240).
+BATCHED_OBS, FILTERED_OBS, PER_OBS, SAMPLES = 16, 8, 1024, 10_240
+DEVICE = "cuda"
+LAUNCHES = {"sample_batched": 1040, "log_prob": 480, "log_prob_batched": 800,
+            "sample_batched_filtered": 160, "sample_ensembles_4": 480,
+            "sample_order_ensembles_2": 640, "cached_precompute": 8, "cached_sample": 400}
+
+# Posterior checks of the new paths, in the form of phase 5's (max over dims
+# of |mean - posterior mean| / posterior std; std / posterior std), read on
+# the same observations by scripts/calibrate_torch_posterior_check.py
+# (--paths ... --first ...) on the CPU with the plain path (PERF.md). Phase
+# 5's bounds where that reading sits inside them: ensembles, orders and the
+# cache at 512 context rows (worst std ratio 1.106), sample_batched_filtered
+# at the card's 2048 rows (mean z 0.462, std ratio 0.934..1.481; at 512 rows
+# one observation read 1.634). sample_batched's shared random context gives
+# observations far out in x a wider posterior (std ratio 1.815 at |x_o| 3.25
+# at 512 rows; 2.102 on the card), beyond phase 5's 1.6, so its bounds are
+# about 4x the CPU reading (mean z 0.807; std ratio 0.854..1.815, i.e. 4x
+# the distance from 1 on each side).
+POSTERIOR_BOUNDS = {
+    "sample_batched": (3.2, (0.42, 4.26)),
+    "sample_batched_filtered": (MAX_MEAN_Z, STD_RATIO),
+    "sample_ensembles_4": (MAX_MEAN_Z, STD_RATIO),
+    "sample_order_ensembles_2": (MAX_MEAN_Z, STD_RATIO),
+    "cached_sample": (MAX_MEAN_Z, STD_RATIO),
+}
+
+# Density checks: |difference| of two readings of log q(θ | x) of the same
+# rows on the same context and weights (the draw's own log-prob against
+# log_prob; log_prob_batched against sample_batched's; CachedPosterior
+# against log_prob, whose dims run at the full width where log_prob slices
+# prefix widths). Bounded like phase 6, by the median and p99 over rows, at
+# about 4x the first H100 reading: where the two readings run the same
+# shapes they agreed to the bit; where the shapes differ (full width, or 8
+# stacked contexts against one) the bf16 model read a median of 5.9e-3 and a
+# p99 of 2.5e-2 nats (PERF.md).
+MAX_MEDIAN_DENSITY_DIFF = 0.025
+MAX_P99_DENSITY_DIFF = 0.1
+
+
+def run_counted(fn):
+    """``fn()`` with every kernel counter set to 0 just before it and read
+    just after: (result, seconds, inference kernel (all, wgmma, wmma))."""
+    import torch
+
+    from npe_pfn_tpu_torch.ops import flash_attention as fa
+
+    counters = (fa.flash_row_attention, fa.flash_row_attention_lse, fa.flash_row_attention_bwd)
+    for c in counters:
+        c.launches = c.wgmma_launches = c.wmma_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if fa.flash_row_attention_lse.launches or fa.flash_row_attention_bwd.launches:
+        raise AssertionError("an inference path launched a training kernel")
+    fwd = fa.flash_row_attention
+    return out, seconds, (fwd.launches, fwd.wgmma_launches, fwd.wmma_launches)
+
+
+def expect_launches(path, counts, rounds=1):
+    want = LAUNCHES[path] * rounds
+    if counts != (want, want, 0):
+        raise AssertionError(f"{path}: (all, wgmma, wmma) launches {counts}, "
+                             f"expected ({want}, {want}, 0)")
+
+
+def posterior_check(path, task, xs, draws):
+    """Phase 5's check on each observation's draws; returns the worst reading
+    (max mean z, min and max std ratio) and logs the observations it came from."""
+    import torch
+
+    max_z, (lo, hi) = POSTERIOR_BOUNDS[path]
+    reads = []
+    for x_o, s in zip(xs, draws):
+        if not bool(torch.isfinite(s).all()):
+            raise AssertionError(f"{path}: non-finite samples")
+        mu, sd = task.posterior_moments(x_o)
+        r = s.std(0) / sd
+        reads.append((((s.mean(0) - mu).abs() / sd).max().item(), r.min().item(), r.max().item()))
+    worst = (max(z for z, _, _ in reads), min(a for _, a, _ in reads), max(b for _, _, b in reads))
+    where = [max(range(len(reads)), key=lambda i: reads[i][0]),
+             min(range(len(reads)), key=lambda i: reads[i][1]),
+             max(range(len(reads)), key=lambda i: reads[i][2])]
+    ok = worst[0] <= max_z and lo <= worst[1] and worst[2] <= hi
+    log(f"{path}: posterior check over {len(draws)} observation(s): max |mean - posterior mean| "
+        f"/ posterior std {worst[0]:.3f} (bound {max_z}); std / posterior std "
+        f"{worst[1]:.3f}..{worst[2]:.3f} (bound {(lo, hi)}); worst at observations {where} of "
+        f"the {len(draws)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{path}: samples disagree with the analytic posterior")
+    return worst
+
+
+def density_check(name, a, b):
+    """Median and p99 of |a - b| over rows, against the density bounds."""
+    import torch
+
+    if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError(f"{name}: non-finite log-probs")
+    diff = (a - b).abs().flatten()
+    med, p99, mx = diff.median().item(), diff.quantile(0.99).item(), diff.max().item()
+    ok = med <= MAX_MEDIAN_DENSITY_DIFF and p99 <= MAX_P99_DENSITY_DIFF
+    log(f"density check [{name}]: |diff| over {diff.numel()} rows: median {med:.3e} (bound "
+        f"{MAX_MEDIAN_DENSITY_DIFF}), p99 {p99:.3e} (bound {MAX_P99_DENSITY_DIFF}), max "
+        f"{mx:.3e}; mean log_prob {a.mean().item():.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the two readings of the density disagree")
+    return dict(median=med, p99=p99, max=mx)
+
+
+def _path_line(path, seconds, rows, counts, smi):
+    log(f"{path}: {seconds:.4f} s per call, {rows / seconds:.1f} samples/s; kernel launches "
+        f"{counts[0]} ({counts[1]} wgmma, {counts[2]} wmma), expected {LAUNCHES[path]} per "
+        f"round; {smi}")
+
+
+def phase_sample_batched(est, task, x, smi):
+    """sample_batched(1024) over 16 observations: Normal prior (one round),
+    then a box that accepts few draws (three rounds and the escape hatch)."""
+    import torch
+
+    from npe_pfn_tpu_torch import NPEPFN
+    from npe_pfn_tpu_torch.distributions import BoxUniform
+
+    dev = torch.device(DEVICE)
+    xs = x[10:10 + BATCHED_OBS]
+    gen = lambda: torch.Generator(dev).manual_seed(200)  # noqa: E731
+    est.sample_batched(PER_OBS, xs, generator=gen())  # warm-up
+    (theta, lp), seconds, counts = run_counted(
+        lambda: est.sample_batched(PER_OBS, xs, generator=gen(), return_log_probs=True))
+    _path_line("sample_batched", seconds, BATCHED_OBS * PER_OBS, counts, smi)
+    expect_launches("sample_batched", counts)
+    diag = est.last_diagnostics
+    if (theta.shape != (BATCHED_OBS, PER_OBS, 10) or diag["rounds"] != 1
+            or int(diag["topped_up"].sum()) or diag["acceptance_rate"] != 1.0):
+        raise AssertionError(f"sample_batched: shape {tuple(theta.shape)}, diagnostics {diag}")
+    posterior_check("sample_batched", task, xs, theta)
+
+    # θ_0 in [-0.05, 0.05], the other dims free: a few percent of the draws
+    # land inside, so every observation is still short after max_iters rounds.
+    low = torch.full((10,), -1e9, device=dev)
+    high = torch.full((10,), 1e9, device=dev)
+    low[0], high[0] = -0.05, 0.05
+    box = NPEPFN(prior=BoxUniform(low, high), model=est.model, filter_context_size=2048,
+                 qry_chunk=2048, seed=0)
+    box.append_simulations(est._theta_train, est._x_train)
+    boxed, box_seconds, counts = run_counted(
+        lambda: box.sample_batched(PER_OBS, xs, generator=gen(), max_iters=3))
+    diag = box.last_diagnostics
+    log(f"sample_batched with a box prior: {box_seconds:.4f} s, {diag['rounds']} rounds, "
+        f"acceptance {diag['acceptance_rate']:.4f}, topped up {diag['topped_up'].tolist()}; "
+        f"kernel launches {counts}; {smi}")
+    expect_launches("sample_batched", counts, rounds=diag["rounds"])
+    inside = ((boxed >= low) & (boxed <= high)).all(dim=-1)
+    for j in range(BATCHED_OBS):
+        n_acc = PER_OBS - int(diag["topped_up"][j])
+        unique = torch.unique(boxed[j], dim=0).shape[0]
+        if not (bool(inside[j, :n_acc].all()) and not bool(inside[j, n_acc:].any())
+                and unique == PER_OBS):
+            raise AssertionError(f"sample_batched with a box prior: observation {j} has "
+                                 f"accepted rows out of the box, fills inside it or duplicates")
+    if diag["rounds"] != 3 or not bool((diag["topped_up"] > 0).all()):
+        raise AssertionError(f"the box run did not take 3 rounds and the hatch: {diag}")
+    return dict(seconds=seconds, box_seconds=box_seconds, xs=xs, theta=theta, lp=lp, gen=gen,
+                box_rounds=diag["rounds"])
+
+
+def phase_densities(est, request, batched, smi):
+    """log_prob of phase 5's first request against its own log-probs, and
+    log_prob_batched of the sample_batched draws against theirs (the same
+    random context, from the same generator seed)."""
+    x_o, samples, _, _, lps = request
+    est.log_prob(samples, x_o)  # warm-up
+    lp, seconds, counts = run_counted(lambda: est.log_prob(samples, x_o))
+    log(f"log_prob: {seconds:.4f} s for {samples.shape[0]} rows; kernel launches {counts}; {smi}")
+    expect_launches("log_prob", counts)
+    out = {"log_prob": density_check("log_prob vs sample's own log-probs", lp, lps)}
+    lpb, seconds_b, counts = run_counted(
+        lambda: est.log_prob_batched(batched["theta"], batched["xs"], generator=batched["gen"]()))
+    log(f"log_prob_batched: {seconds_b:.4f} s for {lpb.numel()} rows; kernel launches {counts}; "
+        f"{smi}")
+    expect_launches("log_prob_batched", counts)
+    out["log_prob_batched"] = density_check("log_prob_batched vs sample_batched's log-probs",
+                                            lpb, batched["lp"])
+    return lp, dict(log_prob=seconds, log_prob_batched=seconds_b, checks=out)
+
+
+def phase_filtered(est, task, x, smi):
+    """sample_batched_filtered(1024) over 8 observations, each on its own
+    nearest-2048 context; two observations' log-probs rescored by log_prob."""
+    import torch
+
+    xs = x[30:30 + FILTERED_OBS]
+    gen = lambda: torch.Generator(DEVICE).manual_seed(300)  # noqa: E731
+    est.sample_batched_filtered(PER_OBS, xs, generator=gen())  # warm-up
+    (theta, lp), seconds, counts = run_counted(
+        lambda: est.sample_batched_filtered(PER_OBS, xs, generator=gen(), return_log_probs=True))
+    _path_line("sample_batched_filtered", seconds, FILTERED_OBS * PER_OBS, counts, smi)
+    expect_launches("sample_batched_filtered", counts)
+    posterior_check("sample_batched_filtered", task, xs, theta)
+    again = torch.stack([est.log_prob(theta[j], xs[j]) for j in range(2)])
+    check = density_check("sample_batched_filtered vs log_prob on each own context", lp[:2], again)
+    return dict(seconds=seconds, check=check)
+
+
+def phase_ensembles(est, task, x_o, smi):
+    """sample(SAMPLES) with 4 context members (quantile target and feature
+    maps), its log-probs against log_prob; then with 2 factorization orders."""
+    import torch
+
+    from npe_pfn_tpu_torch import NPEPFN
+
+    out = {}
+    for path, kw in (("sample_ensembles_4", dict(num_ensembles=4, target_transform="quantile",
+                                                 feature_transform="quantile")),
+                     ("sample_order_ensembles_2", dict(num_order_ensembles=2))):
+        ens = NPEPFN(prior=est.prior, model=est.model, filter_context_size=2048, qry_chunk=2048,
+                     seed=0, **kw)
+        ens.append_simulations(est._theta_train, est._x_train)
+        ens.sample(SAMPLES, x_o)  # warm-up
+        (s, lp), seconds, counts = run_counted(lambda: ens.sample(
+            SAMPLES, x_o, generator=torch.Generator(DEVICE).manual_seed(400),
+            return_log_probs=True))
+        _path_line(path, seconds, SAMPLES, counts, smi)
+        expect_launches(path, counts)
+        posterior_check(path, task, [x_o], [s])
+        out[path] = dict(seconds=seconds)
+        if path == "sample_ensembles_4":
+            out[path]["check"] = density_check("4-member mixture: sample vs log_prob", lp,
+                                               ens.log_prob(s, x_o))
+    return out
+
+
+def phase_cached(est, task, request, lp_ref, smi):
+    """CachedPosterior on phase 5's first observation: one encode of all 10
+    dims, sample(SAMPLES) decode-only, and log_prob against est.log_prob."""
+    import torch
+
+    from npe_pfn_tpu_torch.serving import CachedPosterior
+
+    x_o, samples = request[:2]
+    cp, pre_s, counts = run_counted(lambda: CachedPosterior(est, x_o))
+    log(f"cached_precompute: {pre_s:.4f} s (first call); kernel launches {counts}; {smi}")
+    expect_launches("cached_precompute", counts)
+    cp.sample(SAMPLES)  # warm-up
+    s, seconds, counts = run_counted(
+        lambda: cp.sample(SAMPLES, generator=torch.Generator(DEVICE).manual_seed(500)))
+    _path_line("cached_sample", seconds, SAMPLES, counts, smi)
+    expect_launches("cached_sample", counts)
+    posterior_check("cached_sample", task, [x_o], [s])
+    check = density_check("CachedPosterior.log_prob vs log_prob", cp.log_prob(samples), lp_ref)
+    return dict(precompute=pre_s, seconds=seconds, check=check)
+
+
+
 def main():
     import torch
 
@@ -807,14 +1108,18 @@ def main():
     regs_of = phase_build()
     max_abs_err = phase_kernel_parity()
     timing = phase_kernel_time(regs_of)
-    est, request, launches = phase_main_path()
+    est, task, x, request, launches = phase_main_path()
     phase_path_parity(est, request)
-    del est, request
     train_errs = phase_train_kernel_parity()
     train_times = phase_train_kernel_time(regs_of)
     trained = phase_train()
     phase_train_path_parity()
     phase_prior_nll()
+    batched = phase_sample_batched(est, task, x, smi)
+    lp_ref, _ = phase_densities(est, request, batched, smi)
+    phase_filtered(est, task, x, smi)
+    phase_ensembles(est, task, request[0], smi)
+    phase_cached(est, task, request, lp_ref, smi)
     csrc = "npe_pfn_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_row_attention",
@@ -824,7 +1129,11 @@ def main():
         "design": "wgmma",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        **timing["B25"], "B17": timing["B17"],
+        **timing["B25"], "B17": timing["B17"], "B100_ensemble": timing["B100_ensemble"],
+        "B250_precompute": timing["B250_precompute"],
+        "launches_per_path": {"sample": launches // 3, **LAUNCHES,
+                              "sample_batched_box": LAUNCHES["sample_batched"]
+                              * batched["box_rounds"]},
         "registers": regs_of["fwd"][0], "spill_bytes": regs_of["fwd"][1],
     }]
     # Training kernels: launches over the 20 timed steps; times at the context

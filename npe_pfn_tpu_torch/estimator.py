@@ -1,25 +1,35 @@
-"""NPE-PFN posterior sampling core.
+"""NPE-PFN posterior estimator.
 
-Counterpart of ``npe_pfn_tpu/estimator.py`` for the main path: the
-autoregressive sampler and scorer over θ-dimensions, and ``NPEPFN`` with
-context filtering and rejection against the prior support. Where the JAX
-package scans (``lax.scan`` over dimensions, ``lax.map`` over query chunks,
-``lax.while_loop`` over rejection rounds) the port loops in Python; the
-rejection loop reads one scalar from the device per round.
+Counterpart of ``npe_pfn_tpu/estimator.py`` for a dense model without an
+embedding net: the autoregressive samplers and scorers over θ-dimensions
+(plain, with quantile target / feature transforms, and the context-subset
+ensemble), and ``NPEPFN`` with ``sample``, ``sample_batched``,
+``sample_batched_filtered``, ``log_prob`` and ``log_prob_batched``.
+
+Where the JAX package scans (``lax.scan`` over dimensions, ``lax.map`` over
+query chunks, ``lax.while_loop`` over rejection rounds) the port loops in
+Python, reading one value from the device per rejection round. Where it
+``vmap``s over contexts (ensemble members, per-observation contexts), the
+port carries the contexts as leading tensor dims, so that one kernel launch
+per layer and query chunk serves all of them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from . import filters as filters_mod
+from . import preprocessing as pp
+from . import rejection
 from ._device import resolve_device
 from .distributions import Distribution
 from .models import checkpoint as ckpt_mod
 from .models import regressor
+from .models import transformer
 from .models.regressor import TabICAModel
 
 
@@ -55,126 +65,275 @@ def _step_widths(dx: int, dth: int, f: int, dim_order, feature_width):
     return widths
 
 
-def _check_transform(target_transform: str):
-    if target_transform != "zscore":
-        raise NotImplementedError(
-            f"target_transform={target_transform!r} is not ported yet "
-            "(ROADMAP Queue 1: quantile / featq preprocessing)"
-        )
-
-
-def _context_columns(theta_ctx, x_ctx, f: int):
-    n, dth = theta_ctx.shape
-    dx = x_ctx.shape[1]
-    xc = theta_ctx.new_zeros((n, f))
-    xc[:, :dx] = x_ctx
-    xc[:, dx:dx + dth] = theta_ctx
+def _context_columns(theta, x, f: int):
+    """``[..., R, f]``: x in the first dx columns, θ in the next dθ, zeros after."""
+    dth, dx = theta.shape[-1], x.shape[-1]
+    lead = torch.broadcast_shapes(theta.shape[:-1], x.shape[:-1])
+    xc = theta.new_zeros(lead + (f,))
+    xc[..., :dx] = x
+    xc[..., dx:dx + dth] = theta
     return xc
 
 
+def _check_width(model, dx: int, dth: int):
+    if dx + dth > model.cfg.max_features:
+        raise ValueError(
+            f"dx+dtheta = {dx + dth} exceeds model feature budget {model.cfg.max_features}"
+        )
+
+
+def _check_chunks(q: int, qry_chunk: int):
+    if q % qry_chunk:
+        raise ValueError("pad query rows to a multiple of qry_chunk")
+
+
+def _encode_target(y_raw, ctx_mask, target: str):
+    """The context targets the model sees, and the quantile map (or None)."""
+    if target == "quantile":
+        qt = pp.quantile_fit(y_raw, ctx_mask)
+        return pp.quantile_forward(qt, y_raw), qt
+    return y_raw, None
+
+
+def _feature_maps(xc, ctx_mask, feat_q: bool):
+    """The "+featq" per-column maps fitted on the full-width context, and the
+    mapped context (or None and the context unchanged)."""
+    if not feat_q:
+        return None, xc
+    qts_f = pp.quantile_fit_cols(xc, ctx_mask)
+    return qts_f, pp.quantile_forward_cols(qts_f, xc)
+
+
 def _chunked_logits(model, fitted, xq, qry_chunk: int):
-    return torch.cat(
-        [regressor.predict_logits(model, fitted, c) for c in xq.split(qry_chunk)], dim=0
-    )
+    """Bar logits of query rows ``[..., Q, w]``, decoded ``qry_chunk`` rows at a time."""
+    return torch.cat([regressor.predict_logits(model, fitted, c)
+                      for c in xq.split(qry_chunk, dim=-2)], dim=-2)
+
+
+def _order(dim_order, dth: int, device):
+    return (torch.arange(dth) if dim_order is None else torch.as_tensor(dim_order)).to(device)
 
 
 @torch.no_grad()
 def autoregressive_sample(
     model: TabICAModel,
-    theta_ctx,  # [N, dθ]
-    x_ctx,  # [N, dx]
-    ctx_mask,  # [N]
-    x_qry,  # [Q, dx], one observation per query row
+    theta_ctx,  # [*C, N, dθ]
+    x_ctx,  # [*C, N, dx]
+    ctx_mask,  # [N] or [*C, N]
+    x_qry,  # [*C, Q, dx], one observation per query row
     generator: torch.Generator,
     qry_chunk: int = 1024,
     target_transform: str = "zscore",
     dim_order=None,
     feature_width: Optional[int] = None,
 ):
-    """Draw θ ~ q(θ | x) one dimension at a time; returns (theta [Q, dθ],
-    log_prob [Q])."""
-    _check_transform(target_transform)
-    n, dth = theta_ctx.shape
-    q, dx = x_qry.shape
-    if dx + dth > model.cfg.max_features:
-        raise ValueError(
-            f"dx+dtheta = {dx + dth} exceeds model feature budget {model.cfg.max_features}"
-        )
-    if q % qry_chunk:
-        raise ValueError("pad query rows to a multiple of qry_chunk")
+    """Draw θ ~ q(θ | x) one dimension at a time; returns (theta [*C, Q, dθ],
+    log_prob [*C, Q]). Leading dims ``C`` batch independent contexts (the
+    JAX package ``vmap``s them). ``target_transform`` is "zscore" or
+    "quantile", optionally with "+featq": quantile targets are mapped back
+    after the draw and their log-probs carry the Jacobian; "+featq" maps
+    every feature column with maps fitted once on the full-width context,
+    each step slicing them to its width."""
+    target, feat_q = pp.parse_transform(target_transform)
+    dth = theta_ctx.shape[-1]
+    q, dx = x_qry.shape[-2:]
+    _check_width(model, dx, dth)
+    _check_chunks(q, qry_chunk)
     f = feature_width or _eff_features(model, dx, dth)
-    xc = _context_columns(theta_ctx, x_ctx, f)
-    order = (torch.arange(dth) if dim_order is None else torch.as_tensor(dim_order)).to(
-        theta_ctx.device
-    )
+    qts_f, xc = _feature_maps(_context_columns(theta_ctx, x_ctx, f), ctx_mask, feat_q)
+    order = _order(dim_order, dth, theta_ctx.device)
     prefix_masks = _order_prefix_masks(order, dx, f)
     widths = _step_widths(dx, dth, f, dim_order, feature_width)
 
-    theta = x_qry.new_zeros((q, dth))
-    lp = x_qry.new_zeros((q,))
+    lead = torch.broadcast_shapes(theta_ctx.shape[:-2], x_qry.shape[:-2])
+    theta = x_qry.new_zeros(lead + (q, dth))
+    lp = x_qry.new_zeros(lead + (q,))
     for i, oi in enumerate(order.tolist()):
         w = widths[i]
-        fitted = regressor.fit_encode(
-            model, xc[:, :w], theta_ctx[:, oi], prefix_masks[i, :w], ctx_mask
-        )
-        xq = x_qry.new_zeros((q, w))
-        xq[:, :dx] = x_qry
+        y_ctx, qt = _encode_target(theta_ctx[..., oi], ctx_mask, target)
+        fitted = regressor.fit_encode(model, xc[..., :w], y_ctx, prefix_masks[i, :w], ctx_mask)
+        xq = x_qry.new_zeros(lead + (q, w))
+        xq[..., :dx] = x_qry
         nset = min(w - dx, dth)
         if nset > 0:
-            xq[:, dx:dx + nset] = theta[:, :nset]
+            xq[..., dx:dx + nset] = theta[..., :nset]
+        if feat_q:
+            xq = pp.quantile_forward_cols(qts_f.first_cols(w), xq)
         logits = _chunked_logits(model, fitted, xq, qry_chunk)
         th_i = regressor.sample_y(generator, model, fitted, logits)
-        lp = lp + regressor.log_prob_y(model, fitted, logits, th_i)
-        theta[:, oi] = th_i
+        lp_i = regressor.log_prob_y(model, fitted, logits, th_i)
+        if qt is not None:
+            th_i = pp.quantile_inverse(qt, th_i)
+            lp_i = lp_i + pp.quantile_log_det(qt, th_i)
+        lp = lp + lp_i
+        theta[..., oi] = th_i
     return theta, lp
 
 
 @torch.no_grad()
 def autoregressive_log_prob(
     model: TabICAModel,
-    theta_ctx,
-    x_ctx,
-    ctx_mask,
-    x_qry,  # [Q, dx]
-    theta_eval,  # [Q, dθ]
+    theta_ctx,  # [*C, N, dθ]
+    x_ctx,  # [*C, N, dx]
+    ctx_mask,  # [N] or [*C, N]
+    x_qry,  # [*C, Q, dx]
+    theta_eval,  # [*C, Q, dθ]
     qry_chunk: int = 1024,
     target_transform: str = "zscore",
     dim_order=None,
     feature_width: Optional[int] = None,
 ):
-    """Score log q(θ | x) autoregressively, ``[Q]``."""
-    _check_transform(target_transform)
-    n, dth = theta_ctx.shape
-    q, dx = x_qry.shape
-    if q % qry_chunk:
-        raise ValueError("pad query rows to a multiple of qry_chunk")
+    """Score log q(θ | x) autoregressively, ``[*C, Q]``; quantile targets
+    map θ forward before scoring and add the Jacobian."""
+    target, feat_q = pp.parse_transform(target_transform)
+    dth = theta_ctx.shape[-1]
+    q, dx = x_qry.shape[-2:]
+    _check_chunks(q, qry_chunk)
     f = feature_width or _eff_features(model, dx, dth)
-    xc = _context_columns(theta_ctx, x_ctx, f)
+    qts_f, xc = _feature_maps(_context_columns(theta_ctx, x_ctx, f), ctx_mask, feat_q)
     xq_full = _context_columns(theta_eval, x_qry, f)
-    order = (torch.arange(dth) if dim_order is None else torch.as_tensor(dim_order)).to(
-        theta_ctx.device
-    )
+    if feat_q:
+        xq_full = pp.quantile_forward_cols(qts_f, xq_full)
+    order = _order(dim_order, dth, theta_ctx.device)
     prefix_masks = _order_prefix_masks(order, dx, f)
     widths = _step_widths(dx, dth, f, dim_order, feature_width)
 
-    lp = x_qry.new_zeros((q,))
+    lp = 0.0
     for i, oi in enumerate(order.tolist()):
         w = widths[i]
-        fitted = regressor.fit_encode(
-            model, xc[:, :w], theta_ctx[:, oi], prefix_masks[i, :w], ctx_mask
-        )
-        logits = _chunked_logits(model, fitted, xq_full[:, :w], qry_chunk)
-        lp = lp + regressor.log_prob_y(model, fitted, logits, theta_eval[:, oi])
+        y_ctx, qt = _encode_target(theta_ctx[..., oi], ctx_mask, target)
+        th_i = theta_eval[..., oi]
+        fitted = regressor.fit_encode(model, xc[..., :w], y_ctx, prefix_masks[i, :w], ctx_mask)
+        logits = _chunked_logits(model, fitted, xq_full[..., :w], qry_chunk)
+        if qt is None:
+            lp = lp + regressor.log_prob_y(model, fitted, logits, th_i)
+        else:
+            lp = lp + (regressor.log_prob_y(model, fitted, logits, pp.quantile_forward(qt, th_i))
+                       + pp.quantile_log_det(qt, th_i))
     return lp
+
+
+def _mixture_log_prob(model, fitted, logits, qts, th_i):
+    """log of the equal-weight mixture of the E member densities at θ_i:
+    logits ``[*C, E, Q, B]``, θ_i ``[*C, Q]`` → ``[*C, Q]``."""
+    th_b = th_i.unsqueeze(-2).broadcast_to(logits.shape[:-1])
+    if qts is None:
+        lp_e = regressor.log_prob_y(model, fitted, logits, th_b)
+    else:
+        lp_e = (regressor.log_prob_y(model, fitted, logits, pp.quantile_forward(qts, th_b))
+                + pp.quantile_log_det(qts, th_b))
+    return torch.logsumexp(lp_e, dim=-2) - math.log(logits.shape[-3])
+
+
+@torch.no_grad()
+def autoregressive_sample_ensemble(
+    model: TabICAModel,
+    theta_ctx,  # [*C, E, Ne, dθ]: the context split into E members
+    x_ctx,  # [*C, E, Ne, dx]
+    ctx_mask,  # [*C, E, Ne]
+    x_qry,  # [*C, Q, dx]
+    generator: torch.Generator,
+    qry_chunk: int = 1024,
+    target_transform: str = "zscore",
+    feature_width: Optional[int] = None,
+):
+    """Sample the equal-weight mixture of E context-subset members: each
+    member encodes its own rows and normalization; each query row draws its
+    member, and its log-prob is the mixture density (logsumexp). Every step
+    runs the full width with the feature mask ``col < dx + i``. The members
+    are a leading ``[E]`` axis: one kernel launch per layer and query chunk
+    serves all of them."""
+    target, feat_q = pp.parse_transform(target_transform)
+    e, dth = theta_ctx.shape[-3], theta_ctx.shape[-1]
+    q, dx = x_qry.shape[-2:]
+    _check_width(model, dx, dth)
+    _check_chunks(q, qry_chunk)
+    f = feature_width or _eff_features(model, dx, dth)
+    qts_f, xc = _feature_maps(_context_columns(theta_ctx, x_ctx, f), ctx_mask, feat_q)
+    col = torch.arange(f, device=theta_ctx.device)
+    lead = x_qry.shape[:-2]
+    theta = x_qry.new_zeros(lead + (q, dth))
+    lp = x_qry.new_zeros(lead + (q,))
+    for i in range(dth):
+        y_ctx, qts = _encode_target(theta_ctx[..., i], ctx_mask, target)
+        fitted = regressor.fit_encode(model, xc, y_ctx, col < dx + i, ctx_mask)
+        xq = _context_columns(theta, x_qry, f).unsqueeze(-3)  # [*C, 1, Q, f]
+        if feat_q:
+            xq = pp.quantile_forward_cols(qts_f, xq)  # per-member maps: [*C, E, Q, f]
+        logits = _chunked_logits(model, fitted, xq, qry_chunk)  # [*C, E, Q, B]
+        member = torch.randint(0, e, lead + (q,), generator=generator, device=x_qry.device)
+        y_e = regressor.sample_y(generator, model, fitted, logits)  # [*C, E, Q]
+        if qts is not None:
+            y_e = pp.quantile_inverse(qts, y_e)
+        th_i = y_e.gather(-2, member.unsqueeze(-2)).squeeze(-2)
+        lp = lp + _mixture_log_prob(model, fitted, logits, qts, th_i)
+        theta[..., i] = th_i
+    return theta, lp
+
+
+@torch.no_grad()
+def autoregressive_log_prob_ensemble(
+    model: TabICAModel,
+    theta_ctx,  # [*C, E, Ne, dθ]
+    x_ctx,  # [*C, E, Ne, dx]
+    ctx_mask,  # [*C, E, Ne]
+    x_qry,  # [*C, Q, dx]
+    theta_eval,  # [*C, Q, dθ]
+    qry_chunk: int = 1024,
+    target_transform: str = "zscore",
+    feature_width: Optional[int] = None,
+):
+    """Score log q(θ | x) under the mixture ``autoregressive_sample_ensemble``
+    draws from, ``[*C, Q]``."""
+    target, feat_q = pp.parse_transform(target_transform)
+    dth = theta_ctx.shape[-1]
+    q, dx = x_qry.shape[-2:]
+    _check_chunks(q, qry_chunk)
+    f = feature_width or _eff_features(model, dx, dth)
+    qts_f, xc = _feature_maps(_context_columns(theta_ctx, x_ctx, f), ctx_mask, feat_q)
+    xq = _context_columns(theta_eval, x_qry, f).unsqueeze(-3)
+    if feat_q:
+        xq = pp.quantile_forward_cols(qts_f, xq)
+    col = torch.arange(f, device=theta_ctx.device)
+    lp = 0.0
+    for i in range(dth):
+        y_ctx, qts = _encode_target(theta_ctx[..., i], ctx_mask, target)
+        fitted = regressor.fit_encode(model, xc, y_ctx, col < dx + i, ctx_mask)
+        logits = _chunked_logits(model, fitted, xq, qry_chunk)
+        lp = lp + _mixture_log_prob(model, fitted, logits, qts, theta_eval[..., i])
+    return lp
+
+
+def split_context_ensemble(theta_ctx, x_ctx, ctx_mask, num_ensembles: int):
+    """Round-robin split of a (possibly distance-ordered) context ``[..., N]``
+    into E members ``[..., E, N // E]``, so that every member sees the full
+    distance range."""
+    n_e = theta_ctx.shape[-2] // num_ensembles
+    idx = torch.arange(n_e * num_ensembles, device=theta_ctx.device)
+    idx = idx.reshape(n_e, num_ensembles).T
+    return theta_ctx[..., idx, :], x_ctx[..., idx, :], ctx_mask[..., idx]
+
+
+def _interleave(parts):
+    """Per-order draws ``[(theta [..., P, dθ], lp [..., P]), ...]`` interleaved
+    row by row into ``[..., P·K, dθ]``, so that a trimmed tail stays balanced
+    across the K orders."""
+    theta = torch.stack([t for t, _ in parts], dim=-2).flatten(-3, -2)
+    lp = torch.stack([lp for _, lp in parts], dim=-1).flatten(-2)
+    return theta, lp
 
 
 class NPEPFN:
     """Training-free neural posterior estimator over a pretrained TabICA.
 
-    Simulations are the in-context table; ``sample`` filters them per
-    observation, then draws posterior samples autoregressively and rejects
-    those outside the prior's support. Runs on ``device`` (CUDA unless the
-    caller passes ``device="cpu"``), or on the device of ``model``.
+    Simulations are the in-context table. ``sample`` filters them per
+    observation, draws posterior samples autoregressively and rejects those
+    outside the prior's support; ``sample_batched`` shares one random context
+    across observations; ``log_prob`` scores θ. ``num_ensembles`` mixes
+    context-subset members, ``num_order_ensembles`` factorization orders;
+    ``target_transform`` / ``feature_transform`` "quantile" add normal-score
+    maps. Runs on ``device`` (CUDA unless the caller passes ``device="cpu"``),
+    or on the device of ``model``.
     """
 
     def __init__(
@@ -183,46 +342,73 @@ class NPEPFN:
         model: Optional[TabICAModel] = None,
         filter_type: Union[str, Callable] = "standardized_euclidean_filtering",
         filter_context_size: int = 2048,
+        embedding_net: Optional[Callable] = None,
+        log_prob_mode: str = "autoregressive",
         qry_chunk: int = 1024,
         seed: int = 0,
+        show_progress_bars: bool = False,
+        x_shape=None,
         num_ensembles: int = 1,
         num_order_ensembles: int = 1,
         target_transform: str = "zscore",
         feature_transform: str = "none",
         device=None,
     ):
-        if num_ensembles > 1 or num_order_ensembles > 1:
+        if embedding_net is not None or x_shape is not None:
             raise NotImplementedError(
-                "context and order ensembles are not ported yet (ROADMAP Queue 1: ensembles)"
-            )
-        if feature_transform != "none":
-            raise NotImplementedError(
-                "feature_transform='quantile' is not ported yet "
-                "(ROADMAP Queue 1: quantile / featq preprocessing)"
-            )
-        _check_transform(target_transform)
+                "embedding nets (embedding_net, x_shape) are not ported yet "
+                "(ROADMAP Queue 1 item 3)")
+        if target_transform not in ("zscore", "quantile"):
+            raise ValueError(f"unknown target_transform {target_transform!r}")
+        if feature_transform not in ("none", "quantile"):
+            raise ValueError(f"unknown feature_transform {feature_transform!r}")
+        if num_ensembles > 1 and num_order_ensembles > 1:
+            raise ValueError("num_ensembles and num_order_ensembles cannot both exceed 1")
         self.device = model.device if model is not None else resolve_device(device)
         self.model = model if model is not None else ckpt_mod.load_default(self.device)
+        transformer._check_supported(self.model.cfg)
         self.prior = prior
         self.filter_fn = filters_mod.get_filtering_method(filter_type)
         self.filter_context_size = int(filter_context_size)
+        self.log_prob_mode = log_prob_mode
         self.qry_chunk = int(qry_chunk)
-        self.target_transform = target_transform
+        self.show_progress_bars = show_progress_bars
+        self.num_ensembles = int(num_ensembles)
+        self.num_order_ensembles = int(num_order_ensembles)
+        self.feature_transform = feature_transform
+        self.target_transform = target_transform + (
+            "+featq" if feature_transform == "quantile" else "")
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._theta_train = None
         self._x_train = None
+
+    # -- state ---------------------------------------------------------------
+
+    def __getstate__(self):
+        """A ``torch.Generator`` does not pickle: keep its state instead."""
+        state = self.__dict__.copy()
+        state["_generator"] = self._generator.get_state()
+        return state
+
+    def __setstate__(self, state):
+        gen_state = state.pop("_generator")
+        self.__dict__.update(state)
+        self._generator = torch.Generator(device=self.device)
+        self._generator.set_state(gen_state)
 
     # -- data ----------------------------------------------------------------
 
     def append_simulations(self, theta, x) -> "NPEPFN":
         """Store (θ, x) simulations as the context pool (replaces earlier data)."""
-        theta = self._validate(torch.as_tensor(theta, dtype=torch.float32, device=self.device),
-                               "theta")
-        x = self._validate(torch.as_tensor(x, dtype=torch.float32, device=self.device), "x")
+        theta = self._validate(self._tensor(theta), "theta")
+        x = self._validate(self._tensor(x), "x")
         if theta.shape[0] != x.shape[0]:
             raise ValueError("theta and x must have the same number of rows")
         self._theta_train, self._x_train = theta, x
         return self
+
+    def _tensor(self, a):
+        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
     @staticmethod
     def _validate(arr, name: str):
@@ -231,6 +417,26 @@ class NPEPFN:
         if arr.dim() != 2:
             raise ValueError(f"{name} must be 2D [num_sims, dim], got {tuple(arr.shape)}")
         return arr
+
+    def _one_obs(self, x):
+        """One observation ``[dx]`` (a ``[1, dx]`` row is accepted)."""
+        x = self._tensor(x)
+        if x.dim() == 2:
+            if x.shape[0] != 1:
+                raise ValueError("this call takes a single observation; use the batched "
+                                 "calls for several")
+            x = x[0]
+        return x
+
+    def _obs_rows(self, x):
+        """Observations ``[M, dx]`` (one ``[dx]`` is accepted)."""
+        x = self._tensor(x)
+        return x[None] if x.dim() == 1 else x
+
+    @staticmethod
+    def _num_from_shape(num) -> int:
+        """An int, or a torch-style sample_shape tuple."""
+        return math.prod(int(d) for d in num) if isinstance(num, (tuple, list)) else int(num)
 
     @property
     def num_simulations(self) -> int:
@@ -241,93 +447,316 @@ class NPEPFN:
         """filter_context_size clamped to the dataset size rounded up to 256."""
         return min(self.filter_context_size, _round_up(self._theta_train.shape[0], 256))
 
-    def get_context(self, x_o, generator: Optional[torch.Generator] = None):
-        """The filtered, padded context for one observation."""
+    def _check_data(self):
         if self._theta_train is None:
             raise RuntimeError("call append_simulations first")
+
+    def get_context(self, x_o, generator: Optional[torch.Generator] = None):
+        """The filtered, padded context for one observation."""
+        self._check_data()
         return self.filter_fn(
             x_o, self._theta_train, self._x_train, self._effective_context_size,
             generator=generator or self._generator,
         )
 
-    # -- sampling -------------------------------------------------------------
+    def _shared_context(self, generator):
+        """The random context that the batched calls share across observations."""
+        self._check_data()
+        return filters_mod.random_filtering(
+            None, self._theta_train, self._x_train, self._effective_context_size,
+            generator=generator)
+
+    # -- ensemble modes ------------------------------------------------------
+
+    def _dim_orders(self, dth: int):
+        """The factorization orders of order-ensembling: the identity first,
+        then permutations from a CPU ``torch.Generator`` seeded 714, fixed
+        across calls so that sampling and scoring mix the same set. (The JAX
+        package draws them from ``PRNGKey(714)``, which torch cannot
+        reproduce: ROADMAP Queue 3.)"""
+        g = torch.Generator().manual_seed(714)
+        return [torch.arange(dth)] + [torch.randperm(dth, generator=g)
+                                      for _ in range(1, self.num_order_ensembles)]
+
+    def _orders(self, dth: int):
+        return self._dim_orders(dth) if self.num_order_ensembles > 1 else [None]
+
+    def _sample_rows(self, generator, ctx, x_qry, dim_order=None, qry_chunk=None):
+        """θ and log q for query rows ``[*C, Q, dx]`` against context ``ctx``
+        (leading ``C`` too), through the context-subset ensemble or the
+        plain sampler along ``dim_order``."""
+        qry_chunk = qry_chunk or self.qry_chunk
+        if self.num_ensembles > 1:
+            members = split_context_ensemble(*ctx, self.num_ensembles)
+            return autoregressive_sample_ensemble(self.model, *members, x_qry, generator,
+                                                  qry_chunk, self.target_transform)
+        return autoregressive_sample(self.model, *ctx, x_qry, generator, qry_chunk,
+                                     self.target_transform, dim_order=dim_order)
+
+    def _score_rows(self, ctx, x_qry, theta_eval):
+        """log q(θ | x) under the configured mixture: members (logsumexp in
+        the ensemble scorer) or factorization orders (logsumexp here)."""
+        if self.num_ensembles > 1:
+            members = split_context_ensemble(*ctx, self.num_ensembles)
+            return autoregressive_log_prob_ensemble(self.model, *members, x_qry, theta_eval,
+                                                    self.qry_chunk, self.target_transform)
+        lps = [autoregressive_log_prob(self.model, *ctx, x_qry, theta_eval, self.qry_chunk,
+                                       self.target_transform, dim_order=od)
+               for od in self._orders(theta_eval.shape[-1])]
+        if len(lps) == 1:
+            return lps[0]
+        return torch.logsumexp(torch.stack(lps), dim=0) - math.log(len(lps))
+
+    # -- sampling ------------------------------------------------------------
 
     def _raw_sample(self, generator, x_o, num: int, theta_ctx, x_ctx, ctx_mask):
-        """One proposal draw of ``num`` samples for one observation."""
-        q = _round_up(num, self.qry_chunk)
-        x_qry = x_o.broadcast_to((q, x_o.shape[-1]))
-        theta, lp = autoregressive_sample(
-            self.model, theta_ctx, x_ctx, ctx_mask, x_qry, generator,
-            self.qry_chunk, self.target_transform,
-        )
+        """One proposal draw of ``num`` samples for one observation. With
+        order-ensembling each order draws its padded share and the shares
+        are interleaved; each row's log-prob is under its own order."""
+        ctx = (theta_ctx, x_ctx, ctx_mask)
+        orders = self._orders(theta_ctx.shape[-1])
+        per = _round_up(-(-num // len(orders)), self.qry_chunk)
+        x_qry = x_o.broadcast_to((per, x_o.shape[-1]))
+        theta, lp = _interleave([self._sample_rows(generator, ctx, x_qry, od) for od in orders])
         return theta[:num], lp[:num]
+
+    def _draw_group(self, generator, x, n_over: int, ctx):
+        """``n_over`` proposals for EACH of the m observations ``x [m, dx]``
+        in one pass against the shared context: ``(theta [m, n_over, dθ],
+        lp [m, n_over])``. The rows of all observations are one query axis,
+        padded to ``qry_chunk``. With order-ensembling the pool interleaves
+        the K orders (``n_over`` is a multiple of K)."""
+        m, dx = x.shape
+        dth = ctx[0].shape[-1]
+        orders = self._orders(dth)
+        per = n_over // len(orders)
+        x_qry = F.pad(x.repeat_interleave(per, dim=0),
+                      (0, 0, 0, _round_up(m * per, self.qry_chunk) - m * per))
+        parts = []
+        for od in orders:
+            t, lp = self._sample_rows(generator, ctx, x_qry, od)
+            parts.append((t[:m * per].reshape(m, per, dth), lp[:m * per].reshape(m, per)))
+        return _interleave(parts)
 
     def _within_support(self, theta):
         if self.prior is None:
             return torch.ones(theta.shape[:-1], dtype=torch.bool, device=theta.device)
         return self.prior.support_check(theta)
 
-    def _rejection(self, generator, x_o, ctx, num_samples: int, batch: int, max_iters: int):
-        """Draw → support mask → stable partition → accumulate, then the
-        escape-hatch fill of ``_fused_rejection``: after ``max_iters`` rounds
-        the shortfall is filled with the last round's unused rows."""
-        theta_ctx, x_ctx, ctx_mask = ctx
-        dth = theta_ctx.shape[1]
-        slack = num_samples + max(batch, num_samples)
-        reps = -(-num_samples // batch)
-        acc_s = torch.zeros((slack, dth), device=self.device)
-        acc_lp = torch.zeros((slack,), device=self.device)
-        filled = tot = it = last_na = 0
-        last_s = torch.zeros((batch, dth), device=self.device)
-        last_lp = torch.zeros((batch,), device=self.device)
-        while filled < num_samples and it < max_iters:
-            s, lp = self._raw_sample(generator, x_o, batch, theta_ctx, x_ctx, ctx_mask)
-            mask = self._within_support(s)
-            order = torch.argsort((~mask).to(torch.int8), stable=True)
-            last_s, last_lp = s[order], lp[order]
-            last_na = int(mask.sum())  # the round's one host sync
-            acc_s[filled:filled + batch] = last_s
-            acc_lp[filled:filled + batch] = last_lp
-            filled += min(last_na, num_samples - filled)
-            tot += last_na
-            it += 1
-        roll = (torch.arange(batch, device=self.device) + last_na) % batch
-        acc_s[filled:filled + num_samples] = last_s[roll].repeat(reps, 1)[:num_samples]
-        acc_lp[filled:filled + num_samples] = last_lp[roll].repeat(reps)[:num_samples]
-        acceptance = tot / (max(it, 1) * batch)
-        return acc_s[:num_samples], acc_lp[:num_samples], acceptance
-
     @torch.no_grad()
     def sample(
         self,
-        num_samples: int,
+        num_samples,
         x,
         generator: Optional[torch.Generator] = None,
         max_iters: int = 10,
+        show_progress: Optional[bool] = None,
         return_acceptance_rate: bool = False,
         return_log_probs: bool = False,
+        with_log_prob: bool = False,
         max_sampling_batch_size: int = 10_000,
     ):
         """Posterior samples ``[num_samples, dθ]`` for ONE observation, with
-        rejection against the prior support. The proposal batch is
-        ``min(num_samples, max_sampling_batch_size)`` rounded up to a multiple
-        of ``qry_chunk``."""
-        num_samples = int(num_samples)
+        rejection against the prior support (``rejection.accept_reject_sample``,
+        one device read per round, and its escape hatch). The proposal batch
+        is ``min(num_samples, max_sampling_batch_size)`` rounded up to a
+        multiple of ``qry_chunk``. With ``num_order_ensembles > 1`` the
+        returned log-probs are each row's density under its own order, not
+        the mixture ``log_prob`` scores."""
+        num_samples = self._num_from_shape(num_samples)
         if max_iters < 1:
             raise ValueError("max_iters must be >= 1")
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.dim() == 2:
-            if x.shape[0] != 1:
-                raise ValueError("sample() takes a single observation")
-            x = x[0]
+        show_progress = self.show_progress_bars if show_progress is None else show_progress
+        x = self._one_obs(x)
         generator = generator or self._generator
         ctx = self.get_context(x, generator)
         batch = _round_up(min(num_samples, max_sampling_batch_size), self.qry_chunk)
-        theta, lp, acceptance = self._rejection(generator, x, ctx, num_samples, batch,
-                                                max_iters)
+        theta, lp, acceptance = rejection.accept_reject_sample(
+            generator,
+            proposal_fn=lambda g, n: self._raw_sample(g, x, n, *ctx),
+            accept_reject_fn=self._within_support,
+            num_samples=num_samples,
+            batch_size=batch,
+            max_iters=max_iters,
+            show_progress=show_progress,
+        )
         out = [theta]
-        if return_log_probs:
+        if return_log_probs or with_log_prob:
             out.append(lp)
         if return_acceptance_rate:
             out.append(acceptance)
         return out[0] if len(out) == 1 else tuple(out)
+
+    def _batched_rejection(self, generator, x, ctx, num_samples: int, n_over: int,
+                           max_iters: int):
+        """The JAX ``_fused_batched_rejection`` on the device, one host read
+        per round: each round draws ``n_over`` proposals per observation,
+        stable-partitions the accepted rows to the front and writes them at
+        per-observation fill offsets (a ``scatter``). A still-short
+        observation then takes its final sorted batch rotated past its
+        accepted count (rejected rows first), tiled to the deficit.
+        Returns (theta [m, num, dθ], lp [m, num], topped_up [m], accepted,
+        drawn, rounds)."""
+        m = x.shape[0]
+        dth = ctx[0].shape[-1]
+        dev = x.device
+        slack = num_samples + max(n_over, num_samples)
+        reps = -(-num_samples // n_over)
+        acc_s = torch.zeros((m, slack, dth), device=dev)
+        acc_lp = torch.zeros((m, slack), device=dev)
+        filled = torch.zeros((m,), dtype=torch.int64, device=dev)
+        accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        cols = torch.arange(n_over, device=dev)
+
+        def write(s, lp, offset):
+            idx = offset[:, None] + torch.arange(s.shape[1], device=dev)
+            acc_s.scatter_(1, idx[..., None].expand(-1, -1, dth), s)
+            acc_lp.scatter_(1, idx, lp)
+
+        rounds = 0
+        while True:
+            s, lp = self._draw_group(generator, x, n_over, ctx)
+            mask = self._within_support(s.reshape(-1, dth)).reshape(m, n_over)
+            order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
+            last_s = s.gather(1, order[..., None].expand(-1, -1, dth))
+            last_lp = lp.gather(1, order)
+            last_na = mask.sum(dim=1)
+            write(last_s, last_lp, filled)
+            filled = filled + torch.minimum(last_na, num_samples - filled)
+            accepted = accepted + last_na.sum()
+            rounds += 1
+            if rounds >= max_iters or bool((filled >= num_samples).all()):  # one read
+                break
+        roll = (cols[None, :] + last_na[:, None]) % n_over
+        fill_s = last_s.gather(1, roll[..., None].expand(-1, -1, dth)).repeat(1, reps, 1)
+        fill_lp = last_lp.gather(1, roll).repeat(1, reps)
+        write(fill_s[:, :num_samples], fill_lp[:, :num_samples], filled)
+        topped_up = (num_samples - filled).clamp_min(0)
+        return (acc_s[:, :num_samples], acc_lp[:, :num_samples], topped_up, accepted,
+                rounds * m * n_over, rounds)
+
+    @torch.no_grad()
+    def sample_batched(
+        self,
+        num_samples,
+        x,
+        generator: Optional[torch.Generator] = None,
+        max_iters: int = 10,
+        oversample: float = 1.5,
+        return_log_probs: bool = False,
+        with_log_prob: bool = False,
+        obs_chunk: int = 128,
+    ):
+        """Samples for M observations at once, ``[M, num_samples, dθ]``, from
+        one random context shared by all of them, ``obs_chunk`` observations
+        per pass. With a prior each observation draws ``oversample`` x
+        ``num_samples`` proposals per round; a still-short observation is
+        topped up from its final round's unused rows.
+        ``last_diagnostics``: ``topped_up`` per observation (CPU tensor),
+        ``acceptance_rate`` and ``rounds`` (summed over chunks)."""
+        num_samples = self._num_from_shape(num_samples)
+        if max_iters < 1:
+            raise ValueError("max_iters must be >= 1")
+        x = self._obs_rows(x)
+        generator = generator or self._generator
+        ctx = self._shared_context(generator)
+        with_prior = self.prior is not None
+        n_over = math.ceil(num_samples * (max(oversample, 1.0) if with_prior else 1.0))
+        n_over = _round_up(n_over, self.num_order_ensembles)
+        iters = max_iters if with_prior else 1
+        thetas, lps, topups, accepted, drawn, rounds = [], [], [], 0, 0, 0
+        for chunk in x.split(obs_chunk):
+            t, lp, tu, na, nd, it = self._batched_rejection(generator, chunk, ctx, num_samples,
+                                                            n_over, iters)
+            thetas.append(t)
+            lps.append(lp)
+            topups.append(tu)
+            accepted, drawn, rounds = accepted + na, drawn + nd, rounds + it
+        self.last_diagnostics = {
+            "topped_up": torch.cat(topups).cpu(),
+            "acceptance_rate": int(accepted) / max(drawn, 1),
+            "rounds": rounds,
+        }
+        theta = torch.cat(thetas)
+        return (theta, torch.cat(lps)) if return_log_probs or with_log_prob else theta
+
+    @torch.no_grad()
+    def sample_batched_filtered(
+        self,
+        num_samples,
+        x,
+        generator: Optional[torch.Generator] = None,
+        obs_chunk: int = 8,
+        return_log_probs: bool = False,
+    ):
+        """Samples for M observations, each from its OWN filtered context,
+        ``[M, num_samples, dθ]``. The contexts of ``obs_chunk`` observations
+        are stacked to ``[M, N, ...]`` and drawn in one batched pass (one
+        kernel launch per layer and query chunk for all of them). No prior
+        rejection here; apply the prior's support check downstream."""
+        num_samples = self._num_from_shape(num_samples)
+        x = self._obs_rows(x)
+        generator = generator or self._generator
+        self._check_data()
+        orders = self._orders(self._theta_train.shape[1])
+        per_raw = -(-num_samples // len(orders))
+        chunk = min(self.qry_chunk, _round_up(per_raw, 256))
+        s_pad = _round_up(per_raw, chunk)
+        outs, lps = [], []
+        for xs in x.split(obs_chunk):
+            ctxs = [self.get_context(x_o, generator) for x_o in xs]
+            ctx = tuple(torch.stack(c) for c in zip(*ctxs))
+            x_qry = xs[:, None, :].expand(-1, s_pad, -1)
+            theta, lp = _interleave([self._sample_rows(generator, ctx, x_qry, od, chunk)
+                                     for od in orders])
+            outs.append(theta[:, :num_samples])
+            lps.append(lp[:, :num_samples])
+        theta = torch.cat(outs)
+        return (theta, torch.cat(lps)) if return_log_probs else theta
+
+    # -- densities ------------------------------------------------------------
+
+    def _check_mode(self, mode):
+        mode = mode or self.log_prob_mode
+        if mode == "ratio_based":
+            raise NotImplementedError(
+                "log_prob(mode='ratio_based') and DensityRatioEstimator are not ported yet "
+                "(ROADMAP Queue 1 item 5)")
+        if mode != "autoregressive":
+            raise ValueError(f"unknown log_prob mode {mode!r}")
+
+    def _score_chunked(self, ctx, x_rows, theta_rows, max_sampling_batch_size: int):
+        """Score rows in chunks of ``max_sampling_batch_size`` rounded up to
+        ``qry_chunk``, each padded to a chunk multiple."""
+        cap = _round_up(max_sampling_batch_size, self.qry_chunk)
+        out = []
+        for xr, tr in zip(x_rows.split(cap), theta_rows.split(cap)):
+            pad = _round_up(tr.shape[0], self.qry_chunk) - tr.shape[0]
+            lp = self._score_rows(ctx, F.pad(xr, (0, 0, 0, pad)), F.pad(tr, (0, 0, 0, pad)))
+            out.append(lp[:tr.shape[0]])
+        return torch.cat(out)
+
+    @torch.no_grad()
+    def log_prob(self, theta, x, generator: Optional[torch.Generator] = None,
+                 mode: Optional[str] = None, max_sampling_batch_size: int = 10_000):
+        """log q(θ | x) ``[n]`` for one observation, autoregressively, on the
+        observation's filtered context; with ensembles, the mixture density."""
+        self._check_mode(mode)
+        theta = self._validate(self._tensor(theta), "theta")
+        x = self._one_obs(x)
+        ctx = self.get_context(x, generator)
+        x_rows = x.broadcast_to((theta.shape[0], x.shape[-1]))
+        return self._score_chunked(ctx, x_rows, theta, max_sampling_batch_size)
+
+    @torch.no_grad()
+    def log_prob_batched(self, theta, x, generator: Optional[torch.Generator] = None,
+                         max_sampling_batch_size: int = 10_000):
+        """log q(θ | x) for M observations: θ ``[M, S, dθ]``, x ``[M, dx]`` →
+        ``[M, S]``, on one random context shared by all of them."""
+        theta = self._tensor(theta)
+        x = self._obs_rows(x)
+        m, s, dth = theta.shape
+        ctx = self._shared_context(generator or self._generator)
+        lp = self._score_chunked(ctx, x.repeat_interleave(s, dim=0), theta.reshape(m * s, dth),
+                                 max_sampling_batch_size)
+        return lp.reshape(m, s)

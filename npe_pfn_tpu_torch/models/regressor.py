@@ -115,12 +115,14 @@ def predict_logits(model: TabICAModel, fitted: FittedContext, x_qry):
 
 
 def sample_y(generator: torch.Generator, model: TabICAModel, fitted: FittedContext, logits):
-    """One draw per logit row, in the original target space."""
+    """One draw per logit row ``[..., Q, B] -> [..., Q]``, in the original
+    target space (stats with leading context dims ``[...]``)."""
     yn = bar.sample(generator, model.borders, logits)
-    return yn * fitted.stats.sd_y + fitted.stats.mu_y
+    return yn * fitted.stats.sd_y[..., None] + fitted.stats.mu_y[..., None]
 
 
 def log_prob_y(model: TabICAModel, fitted: FittedContext, logits, y):
-    """log p(y) in the original space: log p_norm((y - mu) / sd) - log sd."""
-    yn = (y - fitted.stats.mu_y) / fitted.stats.sd_y
-    return bar.log_prob(model.borders, logits, yn) - torch.log(fitted.stats.sd_y)
+    """log p(y) in the original space: log p_norm((y - mu) / sd) - log sd;
+    y ``[..., Q]``."""
+    mu, sd = fitted.stats.mu_y[..., None], fitted.stats.sd_y[..., None]
+    return bar.log_prob(model.borders, logits, (y - mu) / sd) - torch.log(sd)

@@ -370,3 +370,31 @@ def test_other_shapes_take_the_wmma_design(cuda_device):
         assert (fa.flash_row_attention_lse.wmma_launches, fa.flash_row_attention_bwd.wmma_launches,
                 fa.flash_row_attention_lse.wgmma_launches) == (before[0] + 1, before[1] + 1,
                                                                before[2])
+
+
+# --- The inference kernel at the shapes of the rest of the API ---------------
+# bf16, H 2, hd 128, against the plain version to 1e-2 (per element and per
+# (batch row, head) slice): context-ensemble members (B 100 = 4 members x 25
+# tokens, 2048 queries against 512 keys, per-member mask rows), the
+# per-observation contexts of sample_batched_filtered (B 136 and 200 = 8
+# observations x 17 or 25 tokens, 1024 queries against 2048 keys, per-batch
+# mask rows) and the CachedPosterior precompute (B 250 = 10 dims x 25 tokens,
+# 2048 x 2048, one shared mask).
+API_SHAPES = [(100, 2048, 512, "batch"), (136, 1024, 2048, "batch"),
+              (200, 1024, 2048, "batch"), (250, 2048, 2048, "shared")]
+
+
+@pytest.mark.parametrize("b,lq,lk,kind", API_SHAPES)
+def test_kernel_at_api_shapes(cuda_device, b, lq, lk, kind):
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).bfloat16()
+               for s in ((b, lq, 2, 128), (b, lk, 2, 128), (b, lk, 2, 128)))
+    m = _mask(kind, b, lk, gen, cuda_device)
+    before = (fa.flash_row_attention.wgmma_launches, fa.flash_row_attention.wmma_launches)
+    out = fa.flash_row_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    assert (fa.flash_row_attention.wgmma_launches,
+            fa.flash_row_attention.wmma_launches) == (before[0] + 1, before[1])
+    ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
+    torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
+    assert _slice_rel_err(out, ref) <= 1e-2

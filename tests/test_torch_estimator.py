@@ -7,6 +7,8 @@ are held by distribution: per-dimension two-sample KS against JAX's samples
 from the same model and context, p > 1e-3 for each dimension.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -177,13 +179,21 @@ def test_sample_aligns_batch_to_qry_chunk(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(num_ensembles=2), dict(num_order_ensembles=2), dict(target_transform="quantile"),
-    dict(feature_transform="quantile"),
+    dict(log_prob_mode="ratio_based"), dict(embedding_net=lambda x: x), dict(num_experts=2),
+    dict(row_pool_slots=4),
 ])
 def test_unported_options_raise(models, kwargs):
+    """What the port still lacks raises and names its ROADMAP item: the
+    ratio-based log_prob, embedding nets, and models with MoE or row pooling."""
     _, tm = models
+    cfg_keys = ("num_experts", "row_pool_slots")
+    cfg = dataclasses.replace(tm.cfg, **{k: v for k, v in kwargs.items() if k in cfg_keys})
+    est_kw = {k: v for k, v in kwargs.items() if k not in cfg_keys}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NPEPFN(model=tm, **kwargs)
+        est = NPEPFN(model=dataclasses.replace(tm, cfg=cfg), **est_kw)
+        theta, x = _sims(64, 2, 3)
+        est.append_simulations(t(theta), t(x))
+        est.log_prob(t(theta[:4]), t(x[0]))
 
 
 def test_input_validation(models):

@@ -30,6 +30,8 @@ def test_import_loads_no_jax():
         "import npe_pfn_tpu_torch.ops.flash_attention, npe_pfn_tpu_torch.ops._build\n"
         "import npe_pfn_tpu_torch.pretrain.train, npe_pfn_tpu_torch.pretrain.__main__\n"
         "import npe_pfn_tpu_torch.pretrain.warmstart, npe_pfn_tpu_torch.utils.pytree_io\n"
+        "import npe_pfn_tpu_torch.preprocessing, npe_pfn_tpu_torch.rejection\n"
+        "import npe_pfn_tpu_torch.serving, npe_pfn_tpu_torch.utils.profiling\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "assert not bad, bad\n"
