@@ -16,7 +16,8 @@ Phases, each printing its own lines:
      main-path shapes, ragged lengths, per-batch and empty masks, head_dim
      16/32/128 and f32 inputs (both designs);
   4. the kernel's time at the main path's two shapes (B 17 and 25), the
-     ensemble decode's (B 100, 2048 x 512) and the precompute's (B 250) beside its
+     ensemble decode's (B 100, 2048 x 512), the precompute's (B 250) and the
+     evaluation harness's smallest and largest (B 9 and 33) beside its
      bound, TFLOP/s, share of the bound, registers and spills, the plain
      version's time and scaled_dot_product_attention's (a yardstick only:
      the port never calls it);
@@ -55,7 +56,18 @@ Phases, each printing its own lines:
  15. sample(10_240) with 4 context members (quantile target and feature
      maps) and with 2 factorization orders;
  16. serving.CachedPosterior: all 10 dims encoded in one call, then
-     decode-only sample(10_240) and log_prob.
+     decode-only sample(10_240) and log_prob;
+ 17. the evaluation metrics on the card: c2st reads chance on two draws of
+     one Gaussian and on a paired joint sample sharing x, and detects shifted
+     Gaussians; c2st_conv detects a bump image against noise; sinkhorn_w2
+     lies within 10% of the exact W2;
+ 18. eval.harness.evaluate_task on all twelve tasks with the shipped
+     checkpoint at num_cal 1000 (two_moons and slcp also at 10_000, filtered
+     to 2048 rows), seed 0, after one timed call of each kind of reference
+     sampler (grid, MCMC): every metric finite, every row attention on the
+     wgmma design, and each task's c2st inside the band that
+     scripts/calibrate_torch_eval.py calibrated on the CPU against the JAX
+     package (scripts/torch_eval_bands.json).
 Phases 12-16 time each call, assert its exact launch count (all wgmma, none
 wmma, no training kernel) and hold samples to phase 5's posterior check and
 log-probs to a second reading of the same density.
@@ -224,6 +236,8 @@ def _inputs(b, lq, lk, h, hd, dtype, mask_kind, gen):
         m = torch.zeros(lk, dtype=torch.bool, device=dev)
     elif mask_kind == "batch_full":
         m = torch.ones((b, lk), dtype=torch.bool, device=dev)
+    elif mask_kind.startswith("first"):  # a context of n simulations padded to lk rows
+        m = torch.arange(lk, device=dev) < int(mask_kind[len("first"):])
     else:
         m = torch.ones(lk, dtype=torch.bool, device=dev)
     return q, k, v, m
@@ -252,12 +266,27 @@ def phase_kernel_parity():
         ("ensemble decode B100", 100, 2048, 512, 2, 128, bf16, "batch"),
         ("filtered decode B200", 200, 1024, 2048, 2, 128, bf16, "batch"),
         ("precompute B250", 250, 2048, 2048, 2, 128, bf16, "shared"),
+        # the evaluation harness's (phase 18): B 9 (two_moons' 9 tokens) to 33
+        # (gaussian_bump_image's 24 projected x + 3 θ, rounded up, + 1),
+        # contexts of 10 to 1000 simulations (1000 padded to 1024 rows), 256
+        # posterior samples per query chunk
+        ("harness encode 10x10", 9, 10, 10, 2, 128, bf16, "all"),
+        ("harness decode 256x10", 9, 256, 10, 2, 128, bf16, "all"),
+        ("harness encode 1000x1000", 33, 1000, 1000, 2, 128, bf16, "all"),
+        ("harness decode 256x1000", 33, 256, 1000, 2, 128, bf16, "all"),
+        ("harness encode num_cal 1000", 9, 1024, 1024, 2, 128, bf16, "first1000"),
+        ("harness decode num_cal 1000", 33, 256, 1024, 2, 128, bf16, "first1000"),
     ]
     main_err = None
     for name, b, lq, lk, h, hd, dtype, mask_kind in cases:
         q, k, v, m = _inputs(b, lq, lk, h, hd, dtype, mask_kind, gen)
+        design = fa.kernel_design(dtype, hd)
+        counter = f"{design}_launches"
+        before = getattr(fa.flash_row_attention, counter)
         out = fa.flash_row_attention(q, k, v, m)
         torch.cuda.synchronize()
+        if getattr(fa.flash_row_attention, counter) != before + 1:
+            raise AssertionError(f"[{name}] did not launch the {design} design")
         ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
         ref = ref * fa._any_valid_gate(m, torch.float32)
         err = (out.float() - ref).abs().max().item()
@@ -269,7 +298,8 @@ def phase_kernel_parity():
         if mask_kind == "shared_empty":
             ok = ok and bool((out == 0).all())
         log(f"kernel vs plain [{name}] B{b} Lq{lq} Lk{lk} H{h} hd{hd} {str(dtype)[6:]} "
-            f"{mask_kind}: max_abs_err {err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
+            f"{mask_kind}, {design}: max_abs_err {err:.3e} (tol {tol:.1e}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version: {name}")
         if name == "encode/decode B25":
@@ -282,7 +312,11 @@ def phase_kernel_parity():
 # the context-ensemble decode (4 members x 25 tokens, 2048 queries against
 # 512 keys) and the CachedPosterior precompute (10 dims x 25 tokens).
 TIME_SHAPES = (("B25", 25, 2048, 2048), ("B17", 17, 2048, 2048),
-               ("B100_ensemble", 100, 2048, 512), ("B250_precompute", 250, 2048, 2048))
+               ("B100_ensemble", 100, 2048, 512), ("B250_precompute", 250, 2048, 2048),
+               # the evaluation harness's smallest and largest (phase 18)
+               ("B9_encode_10x10", 9, 10, 10), ("B9_decode_256x10", 9, 256, 10),
+               ("B33_encode_1000x1000", 33, 1000, 1000),
+               ("B33_decode_256x1000", 33, 256, 1000))
 
 
 def phase_kernel_time(regs_of):
@@ -1091,6 +1125,134 @@ def phase_cached(est, task, request, lp_ref, smi):
     return dict(precompute=pre_s, seconds=seconds, check=check)
 
 
+# Phase 17: the metrics' checks. c2st of 256 + 256 rows: two draws of one 5-D
+# Gaussian and a paired joint sample sharing x read chance (bound 0.6); a
+# shift of 2 per dim (Bayes accuracy Φ(√20 / 2) = 0.987) reads >= 0.95, a
+# shift of 1 per dim (Bayes Φ(√5 / 2) = 0.868) >= 0.8. c2st_conv tells 32 x 32
+# bump images from noise (>= 0.9). sinkhorn_w2 within 10% of the exact W2 at
+# n 256 (2-D Gaussians shifted by 1).
+C2ST_NULL_MAX, C2ST_SHIFT2_MIN, C2ST_SHIFT1_MIN, C2ST_CONV_MIN = 0.6, 0.95, 0.8, 0.9
+SINKHORN_REL = 0.1
+
+
+def phase_metrics(smi):
+    import torch
+
+    from npe_pfn_tpu_torch.eval import metrics as M
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(700)
+
+    def normal(n, d, shift=0.0):
+        return torch.randn((n, d), generator=gen, device=dev) + shift
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = float(fn())
+        return out, time.perf_counter() - t0
+
+    reads = {}
+    reads["c2st_null"] = timed(lambda: M.c2st(gen, normal(256, 5), normal(256, 5)))
+    reads["c2st_shift2"] = timed(lambda: M.c2st(gen, normal(256, 5), normal(256, 5, 2.0)))
+    reads["c2st_shift1"] = timed(lambda: M.c2st(gen, normal(256, 5), normal(256, 5, 1.0)))
+    x = normal(256, 4)
+    reads["c2st_paired_null"] = timed(lambda: M.c2st(
+        gen, torch.cat([normal(256, 1), x], 1), torch.cat([normal(256, 1), x], 1), paired=True))
+    ii = torch.arange(32, device=dev)
+    centre = torch.exp(-((ii[:, None] - 16.0) ** 2 + (ii[None, :] - 16.0) ** 2) / 18.0)
+    noise = normal(256, 1024) * 0.3
+    bump = (noise[128:] + centre.reshape(1, -1))
+    reads["c2st_conv_bump"] = timed(lambda: M.c2st_conv(gen, noise[:128], bump, shape=(32, 32)))
+    a, b = normal(256, 2), normal(256, 2, 1.0)
+    reads["sinkhorn_w2"] = timed(lambda: M.sinkhorn_w2(a, b))
+    exact = M.wasserstein2_exact(a, b)
+    ok = {"c2st_null": reads["c2st_null"][0] <= C2ST_NULL_MAX,
+          "c2st_shift2": reads["c2st_shift2"][0] >= C2ST_SHIFT2_MIN,
+          "c2st_shift1": reads["c2st_shift1"][0] >= C2ST_SHIFT1_MIN,
+          "c2st_paired_null": reads["c2st_paired_null"][0] <= C2ST_NULL_MAX,
+          "c2st_conv_bump": reads["c2st_conv_bump"][0] >= C2ST_CONV_MIN,
+          "sinkhorn_w2": abs(reads["sinkhorn_w2"][0] - exact) <= SINKHORN_REL * exact}
+    for name, (value, seconds) in reads.items():
+        log(f"metrics [{name}]: {value:.4f} in {seconds:.3f} s {'ok' if ok[name] else 'FAIL'}")
+    log(f"metrics: exact W2 (scipy, host) {exact:.4f}; bounds: null <= {C2ST_NULL_MAX}, shift 2 "
+        f">= {C2ST_SHIFT2_MIN}, shift 1 >= {C2ST_SHIFT1_MIN}, conv >= {C2ST_CONV_MIN}, "
+        f"sinkhorn within {SINKHORN_REL:.0%} of exact; {smi}")
+    if not all(ok.values()):
+        raise AssertionError(f"metric checks failed: {[n for n, v in ok.items() if not v]}")
+    return {n: v for n, (v, _) in reads.items()}
+
+
+# Phase 18: evaluate_task on every task at the calibration's protocol
+# (scripts/calibrate_torch_eval.py PROTOCOL: num_cal 1000, num_test 128, 8
+# observations, 256 posterior samples, qry_chunk 256; seed 0). A task's c2st
+# must lie inside its band in scripts/torch_eval_bands.json (the JAX
+# package's reading on the CPU, mean +- max(0.05, 3 x std over seeds 0-2));
+# a task the CPU calibration did not cover, and the num_cal 10_000 cells,
+# inside UNCALIBRATED_BAND.
+EVAL_LARGE = {"two_moons": 10_000, "slcp": 10_000}  # filtered to the 2048-row context
+EVAL_PROTOCOL = dict(num_test=128, num_posterior_samples=256, n_obs_eval=8)
+EVAL_QRY_CHUNK = 256
+UNCALIBRATED_BAND = (0.4, 1.0)
+
+
+def _eval_bands():
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_eval_bands.json")
+    with open(path) as f:
+        return {name: e["band"] for name, e in json.load(f)["tasks"].items() if "band" in e}
+
+
+def phase_evaluate(model, smi):
+    import torch
+
+    from npe_pfn_tpu_torch.eval import harness
+    from npe_pfn_tpu_torch.tasks import get_task, list_tasks
+
+    dev = torch.device(DEVICE)
+    bands = _eval_bands()
+    # One call of each kind of reference sampler, timed: the grid (512 x 512
+    # cells) and the random-walk Metropolis (256 chains x 4000 steps).
+    sampler_s = {}
+    for name in ("two_moons", "slcp", "bernoulli_glm"):
+        task = get_task(name, device=dev)
+        _, x_o = task.simulate(torch.Generator(dev).manual_seed(800), 1)
+        draws, seconds, _ = run_counted(lambda: task.posterior_sampler(
+            torch.Generator(dev).manual_seed(801), x_o[0], 256))
+        if draws.shape != (256, task.dim_theta) or not bool(torch.isfinite(draws).all()):
+            raise AssertionError(f"{name}: bad reference posterior draws")
+        sampler_s[name] = seconds
+        log(f"reference sampler [{name}]: 256 draws in {seconds:.3f} s; {smi}")
+    out, failed = {}, []
+    for name in list_tasks():
+        task = get_task(name, device=dev)
+        grid = (1000,) + ((EVAL_LARGE[name],) if name in EVAL_LARGE else ())
+        res, seconds, counts = run_counted(lambda: harness.evaluate_task(
+            task, num_cal_grid=grid, seeds=(0,), estimator_kwargs=dict(
+                model=model, qry_chunk=EVAL_QRY_CHUNK), device=dev, **EVAL_PROTOCOL))
+        for key, cell in sorted(res["cells"].items()):
+            num_cal = int(key.split("/")[0].split("=")[1])
+            lo, hi = bands.get(name, UNCALIBRATED_BAND) if num_cal == 1000 else UNCALIBRATED_BAND
+            finite = all(math.isfinite(cell[m]) for m in ("c2st", "wasserstein", "mmd"))
+            ok = finite and lo <= cell["c2st"] <= hi
+            calibrated = "calibrated" if num_cal == 1000 and name in bands else "uncalibrated"
+            log(f"evaluate_task [{name} {key}]: c2st {cell['c2st']:.4f} ({calibrated} band "
+                f"[{lo:.4f}, {hi:.4f}]), wasserstein {cell['wasserstein']:.4f}, mmd "
+                f"{cell['mmd']:.4f}, wall_s {cell['wall_s']:.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{name} {key}")
+        log(f"evaluate_task [{name}]: {seconds:.3f} s; row-attention launches {counts[0]} "
+            f"({counts[1]} wgmma, {counts[2]} wmma); {smi}")
+        if counts[0] == 0 or counts != (counts[0], counts[0], 0):
+            failed.append(f"{name}: launches {counts}, all must be wgmma")
+        out[name] = dict(seconds=seconds, launches=counts[0], cells=res["cells"])
+    if failed:
+        raise AssertionError(f"evaluate_task checks failed: {failed}")
+    return out, sampler_s
+
+
 
 def main():
     import torch
@@ -1120,6 +1282,8 @@ def main():
     phase_filtered(est, task, x, smi)
     phase_ensembles(est, task, request[0], smi)
     phase_cached(est, task, request, lp_ref, smi)
+    phase_metrics(smi)
+    evaluated, _ = phase_evaluate(est.model, smi)
     csrc = "npe_pfn_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_row_attention",
@@ -1131,9 +1295,12 @@ def main():
         "max_abs_err": max_abs_err,
         **timing["B25"], "B17": timing["B17"], "B100_ensemble": timing["B100_ensemble"],
         "B250_precompute": timing["B250_precompute"],
+        **{name: timing[name] for name, *_ in TIME_SHAPES[4:]},
         "launches_per_path": {"sample": launches // 3, **LAUNCHES,
                               "sample_batched_box": LAUNCHES["sample_batched"]
-                              * batched["box_rounds"]},
+                              * batched["box_rounds"],
+                              **{f"evaluate_task {name}": e["launches"]
+                                 for name, e in evaluated.items()}},
         "registers": regs_of["fwd"][0], "spill_bytes": regs_of["fwd"][1],
     }]
     # Training kernels: launches over the 20 timed steps; times at the context

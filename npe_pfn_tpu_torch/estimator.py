@@ -1,10 +1,10 @@
 """NPE-PFN posterior estimator.
 
-Counterpart of ``npe_pfn_tpu/estimator.py`` for a dense model without an
-embedding net: the autoregressive samplers and scorers over θ-dimensions
-(plain, with quantile target / feature transforms, and the context-subset
-ensemble), and ``NPEPFN`` with ``sample``, ``sample_batched``,
-``sample_batched_filtered``, ``log_prob`` and ``log_prob_batched``.
+Counterpart of ``npe_pfn_tpu/estimator.py`` for a dense model: the
+autoregressive samplers and scorers over θ-dimensions (plain, with quantile
+target / feature transforms, and the context-subset ensemble), and ``NPEPFN``
+with ``sample``, ``sample_batched``, ``sample_batched_filtered``, ``log_prob``
+and ``log_prob_batched``, with an optional embedding net on x.
 
 Where the JAX package scans (``lax.scan`` over dimensions, ``lax.map`` over
 query chunks, ``lax.while_loop`` over rejection rounds) the port loops in
@@ -354,10 +354,6 @@ class NPEPFN:
         feature_transform: str = "none",
         device=None,
     ):
-        if embedding_net is not None or x_shape is not None:
-            raise NotImplementedError(
-                "embedding nets (embedding_net, x_shape) are not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         if target_transform not in ("zscore", "quantile"):
             raise ValueError(f"unknown target_transform {target_transform!r}")
         if feature_transform not in ("none", "quantile"):
@@ -368,6 +364,8 @@ class NPEPFN:
         self.model = model if model is not None else ckpt_mod.load_default(self.device)
         transformer._check_supported(self.model.cfg)
         self.prior = prior
+        self.embedding_net = embedding_net
+        self.x_shape = tuple(x_shape) if x_shape is not None else None
         self.filter_fn = filters_mod.get_filtering_method(filter_type)
         self.filter_context_size = int(filter_context_size)
         self.log_prob_mode = log_prob_mode
@@ -399,11 +397,15 @@ class NPEPFN:
     # -- data ----------------------------------------------------------------
 
     def append_simulations(self, theta, x) -> "NPEPFN":
-        """Store (θ, x) simulations as the context pool (replaces earlier data)."""
+        """Store (θ, x) simulations as the context pool (replaces earlier data).
+        With an embedding net the context holds the embedded x; with
+        ``x_shape`` the net gets the rows in that shape."""
         theta = self._validate(self._tensor(theta), "theta")
         x = self._validate(self._tensor(x), "x")
         if theta.shape[0] != x.shape[0]:
             raise ValueError("theta and x must have the same number of rows")
+        if self.embedding_net is not None:
+            x = self._prep_obs(x).reshape(theta.shape[0], -1)
         self._theta_train, self._x_train = theta, x
         return self
 
@@ -418,9 +420,23 @@ class NPEPFN:
             raise ValueError(f"{name} must be 2D [num_sims, dim], got {tuple(arr.shape)}")
         return arr
 
-    def _one_obs(self, x):
-        """One observation ``[dx]`` (a ``[1, dx]`` row is accepted)."""
+    def _prep_obs(self, x):
+        """An observation (or rows of them) through the embedding net; with
+        ``x_shape`` the net gets them in that shape, and one row comes back
+        as ``[d]``."""
         x = self._tensor(x)
+        if self.embedding_net is None:
+            return x
+        if self.x_shape is not None:
+            x = self._tensor(self.embedding_net(x.reshape(-1, *self.x_shape)))
+            return x[0] if x.shape[0] == 1 else x
+        if x.dim() == 1:
+            return self._tensor(self.embedding_net(x[None]))[0]
+        return self._tensor(self.embedding_net(x))
+
+    def _one_obs(self, x):
+        """One observation ``[dx]``, embedded (a ``[1, dx]`` row is accepted)."""
+        x = self._prep_obs(x)
         if x.dim() == 2:
             if x.shape[0] != 1:
                 raise ValueError("this call takes a single observation; use the batched "
@@ -429,8 +445,9 @@ class NPEPFN:
         return x
 
     def _obs_rows(self, x):
-        """Observations ``[M, dx]`` (one ``[dx]`` is accepted)."""
+        """Observations ``[M, dx]``, embedded (one ``[dx]`` is accepted)."""
         x = self._tensor(x)
+        x = self._prep_obs(x[None] if x.dim() == 1 else x)
         return x[None] if x.dim() == 1 else x
 
     @staticmethod
@@ -752,9 +769,14 @@ class NPEPFN:
     def log_prob_batched(self, theta, x, generator: Optional[torch.Generator] = None,
                          max_sampling_batch_size: int = 10_000):
         """log q(θ | x) for M observations: θ ``[M, S, dθ]``, x ``[M, dx]`` →
-        ``[M, S]``, on one random context shared by all of them."""
+        ``[M, S]``, on one random context shared by all of them. The
+        embedding net gets x as given, without ``x_shape`` (as in the JAX
+        package)."""
         theta = self._tensor(theta)
-        x = self._obs_rows(x)
+        x = self._tensor(x)
+        if self.embedding_net is not None:
+            x = self._tensor(self.embedding_net(x))
+        x = x[None] if x.dim() == 1 else x
         m, s, dth = theta.shape
         ctx = self._shared_context(generator or self._generator)
         lp = self._score_chunked(ctx, x.repeat_interleave(s, dim=0), theta.reshape(m * s, dth),

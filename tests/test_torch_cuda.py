@@ -40,6 +40,8 @@ CASES = [
 def _mask(kind, b, lk, gen, dev):
     if kind == "shared":
         return torch.arange(lk, device=dev) < lk - 7
+    if isinstance(kind, int):  # the first ``kind`` keys valid, one mask for all rows
+        return torch.arange(lk, device=dev) < kind
     m = torch.arange(lk, device=dev)[None] < torch.randint(1, lk + 1, (b, 1), generator=gen,
                                                            device=dev)
     if kind == "batch_empty_row":
@@ -379,9 +381,14 @@ def test_other_shapes_take_the_wmma_design(cuda_device):
 # per-observation contexts of sample_batched_filtered (B 136 and 200 = 8
 # observations x 17 or 25 tokens, 1024 queries against 2048 keys, per-batch
 # mask rows) and the CachedPosterior precompute (B 250 = 10 dims x 25 tokens,
-# 2048 x 2048, one shared mask).
+# 2048 x 2048, one shared mask). Then the evaluation harness's: B 9
+# (two_moons' tokens) to 33 (gaussian_bump_image's), contexts of 10 and 1000
+# simulations (every key valid) and of num_cal 1000 padded to 1024 rows, 256
+# posterior samples per query chunk.
 API_SHAPES = [(100, 2048, 512, "batch"), (136, 1024, 2048, "batch"),
-              (200, 1024, 2048, "batch"), (250, 2048, 2048, "shared")]
+              (200, 1024, 2048, "batch"), (250, 2048, 2048, "shared"),
+              (9, 10, 10, 10), (9, 256, 10, 10), (33, 1000, 1000, 1000), (33, 256, 1000, 1000),
+              (9, 1024, 1024, 1000), (33, 256, 1024, 1000)]
 
 
 @pytest.mark.parametrize("b,lq,lk,kind", API_SHAPES)

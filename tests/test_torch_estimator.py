@@ -179,12 +179,12 @@ def test_sample_aligns_batch_to_qry_chunk(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(log_prob_mode="ratio_based"), dict(embedding_net=lambda x: x), dict(num_experts=2),
-    dict(row_pool_slots=4),
+    dict(log_prob_mode="ratio_based"), dict(num_experts=2), dict(row_pool_slots=4),
 ])
 def test_unported_options_raise(models, kwargs):
     """What the port still lacks raises and names its ROADMAP item: the
-    ratio-based log_prob, embedding nets, and models with MoE or row pooling."""
+    ratio-based log_prob, and models with MoE or row pooling. (Embedding nets
+    are ported: tests/test_torch_embeddings.py.)"""
     _, tm = models
     cfg_keys = ("num_experts", "row_pool_slots")
     cfg = dataclasses.replace(tm.cfg, **{k: v for k, v in kwargs.items() if k in cfg_keys})

@@ -1,6 +1,6 @@
 """The port stands alone: importing npe_pfn_tpu_torch (and chip_smoke.py)
-loads nothing of JAX or of the JAX package, and chip_smoke.py fails without a
-card instead of printing a result."""
+loads nothing of JAX or of the JAX package, not even to build the twelve
+tasks, and chip_smoke.py fails without a card instead of printing a result."""
 
 import ast
 import os
@@ -32,6 +32,10 @@ def test_import_loads_no_jax():
         "import npe_pfn_tpu_torch.pretrain.warmstart, npe_pfn_tpu_torch.utils.pytree_io\n"
         "import npe_pfn_tpu_torch.preprocessing, npe_pfn_tpu_torch.rejection\n"
         "import npe_pfn_tpu_torch.serving, npe_pfn_tpu_torch.utils.profiling\n"
+        "import npe_pfn_tpu_torch.embeddings, npe_pfn_tpu_torch.distributions\n"
+        "import npe_pfn_tpu_torch.eval.metrics, npe_pfn_tpu_torch.eval.harness\n"
+        "from npe_pfn_tpu_torch.tasks import get_task, list_tasks\n"
+        "tasks = [get_task(n, device='cpu') for n in list_tasks()]\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "assert not bad, bad\n"
@@ -77,3 +81,18 @@ def test_chip_smoke_fails_without_card(where, tmp_path):
                           timeout=240)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_drives_the_evaluation_phases():
+    """chip_smoke.py runs the metrics (phase 17) and evaluate_task (phase 18)
+    through the port's eval package, and reads its c2st bands from the
+    committed calibration file."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    assert {"phase_metrics", "phase_evaluate"} <= names
+    called = {n.func.id for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert {"phase_metrics", "phase_evaluate"} <= called
+    mods = set(_imports(os.path.join(REPO, "chip_smoke.py")))
+    assert {"npe_pfn_tpu_torch.eval", "npe_pfn_tpu_torch.eval.harness"} & mods
+    assert os.path.exists(os.path.join(REPO, "scripts", "torch_eval_bands.json"))
