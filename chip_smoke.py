@@ -67,7 +67,8 @@ Phases, each printing its own lines:
      sampler (grid, MCMC): every metric finite, every row attention on the
      wgmma design, and each task's c2st inside the band that
      scripts/calibrate_torch_eval.py calibrated on the CPU against the JAX
-     package (scripts/torch_eval_bands.json).
+     package over seeds 0-9 (scripts/torch_eval_bands.json); the num_cal
+     10_000 cells no higher than that band's upper edge.
 Phases 12-16 time each call, assert its exact launch count (all wgmma, none
 wmma, no training kernel) and hold samples to phase 5's posterior check and
 log-probs to a second reading of the same density.
@@ -1187,9 +1188,11 @@ def phase_metrics(smi):
 # (scripts/calibrate_torch_eval.py PROTOCOL: num_cal 1000, num_test 128, 8
 # observations, 256 posterior samples, qry_chunk 256; seed 0). A task's c2st
 # must lie inside its band in scripts/torch_eval_bands.json (the JAX
-# package's reading on the CPU, mean +- max(0.05, 3 x std over seeds 0-2));
-# a task the CPU calibration did not cover, and the num_cal 10_000 cells,
-# inside UNCALIBRATED_BAND.
+# package's reading on the CPU, mean +- max(0.05, 3 x std over seeds 0-9));
+# a task the CPU calibration did not cover inside UNCALIBRATED_BAND. A
+# num_cal 10_000 cell (filtered to 2048 rows) must score no worse than the
+# upper edge of its task's num_cal 1000 band: more simulations must not
+# leave the posterior further from the reference.
 EVAL_LARGE = {"two_moons": 10_000, "slcp": 10_000}  # filtered to the 2048-row context
 EVAL_PROTOCOL = dict(num_test=128, num_posterior_samples=256, n_obs_eval=8)
 EVAL_QRY_CHUNK = 256
@@ -1234,11 +1237,13 @@ def phase_evaluate(model, smi):
                 model=model, qry_chunk=EVAL_QRY_CHUNK), device=dev, **EVAL_PROTOCOL))
         for key, cell in sorted(res["cells"].items()):
             num_cal = int(key.split("/")[0].split("=")[1])
-            lo, hi = bands.get(name, UNCALIBRATED_BAND) if num_cal == 1000 else UNCALIBRATED_BAND
+            lo, hi = bands.get(name, UNCALIBRATED_BAND)
+            kind = "calibrated" if name in bands else "uncalibrated"
+            if num_cal != 1000:
+                lo, kind = UNCALIBRATED_BAND[0], "num_cal 1000 upper edge"
             finite = all(math.isfinite(cell[m]) for m in ("c2st", "wasserstein", "mmd"))
             ok = finite and lo <= cell["c2st"] <= hi
-            calibrated = "calibrated" if num_cal == 1000 and name in bands else "uncalibrated"
-            log(f"evaluate_task [{name} {key}]: c2st {cell['c2st']:.4f} ({calibrated} band "
+            log(f"evaluate_task [{name} {key}]: c2st {cell['c2st']:.4f} ({kind} band "
                 f"[{lo:.4f}, {hi:.4f}]), wasserstein {cell['wasserstein']:.4f}, mmd "
                 f"{cell['mmd']:.4f}, wall_s {cell['wall_s']:.3f} {'ok' if ok else 'FAIL'}")
             if not ok:

@@ -30,8 +30,8 @@ import torch
 
 from .._device import resolve_device
 from ..estimator import NPEPFN
-from ..pretrain.train import derive_seed
 from ..tasks import Task
+from ..utils.seeding import derive_seed
 from . import metrics as M
 
 # Stream tags of derive_seed(seed, tag, ...).

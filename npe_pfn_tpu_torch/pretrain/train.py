@@ -34,6 +34,7 @@ from ..models import regressor, transformer
 from ..models.config import TabICAConfig
 from ..models.regressor import TabICAModel
 from ..utils import pytree_io
+from ..utils.seeding import derive_seed
 from . import prior
 
 
@@ -59,12 +60,6 @@ class TrainConfig:
     feat_curriculum_init: int = 8
     # Weight of the MoE load-balance aux loss (cfg.num_experts > 0 only).
     moe_aux_weight: float = 0.01
-
-
-def derive_seed(*ints: int) -> int:
-    """A 63-bit seed from integers (the JAX package's ``fold_in`` chain)."""
-    state = np.random.SeedSequence([int(i) for i in ints]).generate_state(1, dtype=np.uint64)
-    return int(state[0]) & ((1 << 63) - 1)
 
 
 def _tree_map(fn, *trees):

@@ -6,23 +6,27 @@ for a second reading, of the PyTorch port on the CPU (its plain path), with
 the shipped checkpoint (tabica_v6_best, bf16), at the protocol that
 chip_smoke.py runs on the card (``PROTOCOL`` below): num_cal 1000, num_test
 128, 8 observations, 256 posterior samples, ``qry_chunk`` 256, one cell per
-seed. Each (package, task) keeps its cells in ``<workdir>/<package>_<task>.json``,
+seed (seeds 0-9). Each (package, task) keeps its cells in ``<workdir>/<package>_<task>.json``,
 the harness's own resume file, so an interrupted run resumes and tasks can run
 in separate processes; seeds of one task can run in separate processes with
 their own ``--workdir`` below the default one (``--bands`` merges them).
 
 ``--bands`` then writes ``scripts/torch_eval_bands.json`` (or ``--out``): for
-each task with JAX readings on every seed of ``--seeds``, the band mean ±
-max(0.05, 3 × std over seeds) of the JAX c2st, beside every reading of both
-packages and its wall time, and prints each package's mean and std. A task
-without them is gated only to ``DEFAULT_BAND``. ``--device cuda`` runs the
-port on the card instead, to read the spread of its c2st over seeds there.
+each task with JAX readings on every seed of ``--seeds`` (at least
+``MIN_SEEDS``), the band mean ± max(0.05, 3 × std over seeds) of the JAX
+c2st, beside every reading of both packages and its wall time, and prints
+each package's mean and std. A task without them is gated only to
+``DEFAULT_BAND``. ``--device cuda`` runs the port on the card instead, to
+read the spread of its c2st over seeds there; ``--bands`` on such a workdir
+gathers those readings (``scripts/torch_eval_card_readings.json``).
 
     JAX_PLATFORMS=cpu python3 scripts/calibrate_torch_eval.py --package jax --tasks two_moons,slcp
-    python3 scripts/calibrate_torch_eval.py --package torch --tasks two_moons
+    python3 scripts/calibrate_torch_eval.py --package torch --tasks two_moons --seeds 0,1,2
     python3 scripts/calibrate_torch_eval.py --bands
-    python3 scripts/calibrate_torch_eval.py --package torch --device cuda --seeds 0,1,2,3,4 \
+    python3 scripts/calibrate_torch_eval.py --package torch --device cuda \
         --workdir chiprun_out/card_eval
+    python3 scripts/calibrate_torch_eval.py --bands --workdir chiprun_out/card_eval \
+        --out scripts/torch_eval_card_readings.json
 """
 
 import argparse
@@ -45,6 +49,8 @@ QRY_CHUNK = 256
 BANDS = os.path.join(REPO, "scripts", "torch_eval_bands.json")
 DEFAULT_BAND = (0.4, 1.0)
 MIN_HALF_WIDTH = 0.05
+MIN_SEEDS = 10
+SEEDS = ",".join(str(s) for s in range(MIN_SEEDS))
 
 
 def run(package, tasks, seeds, workdir, threads, device):
@@ -79,36 +85,42 @@ def run(package, tasks, seeds, workdir, threads, device):
         print(f"[calibrate] {package} {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _readings(cell_file):
+    with open(cell_file) as f:
+        cells = json.load(f)["cells"]
+    return {k: {m: cell[m] for m in ("c2st", "wasserstein", "mmd", "wall_s")}
+            for k, cell in cells.items()}
+
+
+def _mean_std(entry, package, seeds):
+    reads = [entry.get(package, {}).get(f"num_cal=1000/seed={s}", {}).get("c2st")
+             for s in seeds]
+    return None if None in reads else (float(np.mean(reads)), float(np.std(reads)))
+
+
 def bands(seeds, workdir, path):
+    if len(seeds) < MIN_SEEDS:
+        raise SystemExit(f"bands need at least {MIN_SEEDS} seeds, got {len(seeds)}")
     out = {"protocol": dict(PROTOCOL, qry_chunk=QRY_CHUNK, seeds=list(seeds),
                             checkpoint="tabica_v6_best (bf16)"),
-           "rule": f"JAX mean +- max({MIN_HALF_WIDTH}, 3 x std over seeds); "
-                   f"uncalibrated tasks {list(DEFAULT_BAND)}",
+           "rule": f"JAX mean +- max({MIN_HALF_WIDTH}, 3 x std over seeds), at least "
+                   f"{MIN_SEEDS} seeds; uncalibrated tasks {list(DEFAULT_BAND)}",
            "tasks": {}}
     for cell_file in sorted(glob.glob(os.path.join(workdir, "**", "*_*.json"), recursive=True)):
         package, name = os.path.basename(cell_file)[:-5].split("_", 1)
-        with open(cell_file) as f:
-            cells = json.load(f)["cells"]
-        entry = out["tasks"].setdefault(name, {}).setdefault(package, {})
-        entry.update({k: {m: cell[m] for m in ("c2st", "wasserstein", "mmd", "wall_s")}
-                      for k, cell in cells.items()})
+        out["tasks"].setdefault(name, {}).setdefault(package, {}).update(_readings(cell_file))
     for name, entry in out["tasks"].items():
         for package in ("jax", "torch"):
             if package in entry:
                 entry[package] = dict(sorted(entry[package].items()))
-        reads = [entry.get("jax", {}).get(f"num_cal=1000/seed={s}", {}).get("c2st")
-                 for s in seeds]
-        if None in reads:
-            continue
-        mean, std = float(np.mean(reads)), float(np.std(reads))
-        half = max(MIN_HALF_WIDTH, 3 * std)
-        entry["band"] = [mean - half, mean + half]
-        entry["jax_mean_std"] = [mean, std]
-    for name, entry in out["tasks"].items():
-        port = [entry.get("torch", {}).get(f"num_cal=1000/seed={s}", {}).get("c2st")
-                for s in seeds]
-        if None not in port:
-            entry["torch_mean_std"] = [float(np.mean(port)), float(np.std(port))]
+        jax_ms = _mean_std(entry, "jax", seeds)
+        if jax_ms is not None:
+            half = max(MIN_HALF_WIDTH, 3 * jax_ms[1])
+            entry["band"] = [jax_ms[0] - half, jax_ms[0] + half]
+            entry["jax_mean_std"] = list(jax_ms)
+        torch_ms = _mean_std(entry, "torch", seeds)
+        if torch_ms is not None:
+            entry["torch_mean_std"] = list(torch_ms)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     for name, entry in sorted(out["tasks"].items()):
@@ -119,7 +131,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "torch"))
     ap.add_argument("--tasks", default=",".join(TASKS))
-    ap.add_argument("--seeds", default="0,1,2")
+    ap.add_argument("--seeds", default=SEEDS)
     ap.add_argument("--workdir", default=os.path.join(REPO, "_eval_calibration"))
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
     ap.add_argument("--device", default="cpu", help="the port's device (--package torch)")

@@ -1,12 +1,16 @@
 """The port stands alone: importing npe_pfn_tpu_torch (and chip_smoke.py)
 loads nothing of JAX or of the JAX package, not even to build the twelve
-tasks, and chip_smoke.py fails without a card instead of printing a result."""
+tasks, and chip_smoke.py fails without a card instead of printing a result.
+The evaluation does not load the trainer, and chip_smoke.py's c2st bands
+follow their calibration rule."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +38,7 @@ def test_import_loads_no_jax():
         "import npe_pfn_tpu_torch.serving, npe_pfn_tpu_torch.utils.profiling\n"
         "import npe_pfn_tpu_torch.embeddings, npe_pfn_tpu_torch.distributions\n"
         "import npe_pfn_tpu_torch.eval.metrics, npe_pfn_tpu_torch.eval.harness\n"
+        "import npe_pfn_tpu_torch.utils.seeding\n"
         "from npe_pfn_tpu_torch.tasks import get_task, list_tasks\n"
         "tasks = [get_task(n, device='cpu') for n in list_tasks()]\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -96,3 +101,30 @@ def test_chip_smoke_drives_the_evaluation_phases():
     mods = set(_imports(os.path.join(REPO, "chip_smoke.py")))
     assert {"npe_pfn_tpu_torch.eval", "npe_pfn_tpu_torch.eval.harness"} & mods
     assert os.path.exists(os.path.join(REPO, "scripts", "torch_eval_bands.json"))
+
+
+def test_evaluation_loads_no_trainer():
+    """eval.harness takes its seeds from utils.seeding, not from the trainer."""
+    code = ("import sys, npe_pfn_tpu_torch.eval.harness\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('npe_pfn_tpu_torch.pretrain'))\n"
+            "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_eval_bands_follow_their_rule():
+    """Every band in the committed calibration file comes from JAX readings on
+    at least ten seeds, all committed beside it: mean ± max(0.05, 3 × std)."""
+    with open(os.path.join(REPO, "scripts", "torch_eval_bands.json")) as f:
+        calib = json.load(f)
+    seeds = calib["protocol"]["seeds"]
+    assert len(seeds) >= 10
+    assert set(calib["tasks"]) == {
+        "two_moons", "gaussian_linear", "slcp", "lotka_volterra", "sir", "pendulum",
+        "wind_tunnel", "gaussian_bump_image", "gaussian_mixture", "bernoulli_glm",
+        "gaussian_linear_uniform", "high_dim_gaussian"}
+    for name, entry in calib["tasks"].items():
+        reads = [entry["jax"][f"num_cal=1000/seed={s}"]["c2st"] for s in seeds]
+        half = max(0.05, 3 * float(np.std(reads)))
+        np.testing.assert_allclose(entry["band"], [np.mean(reads) - half, np.mean(reads) + half],
+                                   rtol=1e-12, err_msg=name)

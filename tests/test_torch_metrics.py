@@ -3,13 +3,15 @@
 Tolerances: mmd (both kernels) and sinkhorn_w2 at rtol 1e-4 on the same
 numpy samples; the conv trunk's features ("SAME" padding at stride 2, 1D and
 2D) at rtol / atol 1e-5 on the same parameters; wasserstein2_exact and
-ks_test_per_dim exactly (both scipy). c2st and c2st_conv, given JAX's
-initial parameters and fold permutation, train for hundreds of Adam steps in
+ks_test_per_dim exactly (both scipy). c2st, c2st_embedded and c2st_conv,
+given JAX's initial parameters, fold permutation and projection weights, train for hundreds of Adam steps in
 f32 with sums in another order, so their held-out accuracies are held to
 within 2 / fold_size of JAX's. The null and signal cases bound the port
 alone, in 5-D: two draws of one Gaussian read ≤ 0.6; Gaussians shifted by 2
 per dim (Bayes accuracy Φ(√20 / 2) = 0.987) ≥ 0.95; shifted by 1 per dim
-(Bayes Φ(√5 / 2) = 0.868, so never 0.95) ≥ 0.8.
+(Bayes Φ(√5 / 2) = 0.868, so never 0.95) ≥ 0.8; a bump image against
+noise reads ≥ 0.9 through the conv C2ST and ≥ 0.8 through a 16-dim random
+projection (Bayes 0.93).
 """
 
 import jax
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from npe_pfn_tpu import embeddings as je
 from npe_pfn_tpu.eval import metrics as jm
 from npe_pfn_tpu_torch.embeddings import RandomProjectionEmbedding
 from npe_pfn_tpu_torch.eval import metrics as tm
@@ -150,6 +153,27 @@ def test_c2st_embedded_and_conv_detect_a_bump():
     bump[100:] += np.exp(-((ii - 8.0) ** 2 + (jj - 8.0) ** 2) / 8.0)
     a, b = t(noise[:100].reshape(100, -1)), t(bump[100:].reshape(100, -1))
     assert float(tm.c2st_conv(gen, a, b, shape=(16, 16))) >= 0.9
+    # Projected to 16 dims the bump is a mean shift of Mahalanobis length
+    # about 3 (energy 4π over noise 0.3² per pixel), Bayes accuracy Φ(1.5) = 0.93.
     proj = RandomProjectionEmbedding(256, 16, seed=0, standardize=False, device="cpu")
-    acc = float(tm.c2st_embedded(gen, a, b, proj))
-    assert 0.5 <= acc <= 1.0
+    assert float(tm.c2st_embedded(gen, a, b, proj)) >= 0.8
+
+
+def test_c2st_embedded_given_jax_init_matches():
+    """Through JAX's projection weights, initial parameters and permutation,
+    the held-out accuracy within 2 / fold_size of JAX's, on a bump that the
+    projected features show (so both read far above chance)."""
+    n, side, dout, folds = 100, 12, 16, 5
+    rng = np.random.default_rng(24)
+    imgs = rng.standard_normal((2 * n, side, side)).astype(np.float32) * 0.3
+    imgs[n:, 3:9, 3:9] += 0.5
+    a, b = imgs[:n].reshape(n, -1), imgs[n:].reshape(n, -1)
+    jproj = je.RandomProjectionEmbedding(side * side, dout, seed=5)
+    key = jax.random.PRNGKey(25)
+    want = float(jm.c2st_embedded(key, a, b, jproj))
+    perm, params = _jax_c2st_draws(key, n, False, folds, lambda k: jm._mlp_init(k, dout, 64))
+    tproj = RandomProjectionEmbedding(side * side, dout, device="cpu",
+                                      weights={"w": np.asarray(jproj.w)})
+    got = float(tm.c2st_embedded(None, t(a), t(b), tproj, params=params, perm=perm))
+    assert abs(got - want) <= 2 / (2 * n // folds), (got, want)
+    assert want >= 0.9, want
