@@ -68,10 +68,26 @@ Phases, each printing its own lines:
      wgmma design, and each task's c2st inside the band that
      scripts/calibrate_torch_eval.py calibrated on the CPU against the JAX
      package over seeds 0-9 (scripts/torch_eval_bands.json); the num_cal
-     10_000 cells no higher than that band's upper edge.
-Phases 12-16 time each call, assert its exact launch count (all wgmma, none
-wmma, no training kernel) and hold samples to phase 5's posterior check and
-log-probs to a second reading of the same density.
+     10_000 cells no higher than that band's upper edge;
+ 19. run_tsnpe on 10-D gaussian_linear (2 rounds x 1024 simulations,
+     rejection truncation, 4096 support samples, candidate batches of
+     16,384) with exact launches per step, sample(10_240) from the fitted
+     estimator under phase 5's check, and one SIR round (oversample 32);
+ 20. sample_refined on two_moons and the ratio-based log_prob on 10-D
+     gaussian_linear (scripts/calibrate_torch_sequential.py's protocols,
+     seed 0), each reading inside its band from the JAX package over seeds
+     0-9 (scripts/torch_sequential_bands.json);
+ 21. audit_binary's ECE, RestrictedPrior, the unconditional estimator (4
+     clusters on 4096 draws of N(0, I)) against their bands, and
+     `python -m npe_pfn_tpu_torch tsnpe` in-process;
+ 22. the inference kernel at each new shape phases 19-21 launched, against
+     its plain version and timed as in phase 4.
+Phases 12-16 and 19-21 time each call and assert that it launches only the
+wgmma inference kernel (no wmma, no training kernel), in exact counts where
+the loops fix them (every path but the refinement, the unconditional
+estimator and the CLI, whose rejection rounds depend on the draws); phases
+12-16 hold samples to phase 5's posterior check and log-probs to a second
+reading of the same density.
 Then one JSON line of the kernels, and last {"ok": true, "device": {...}}.
 Any failure exits non-zero without the last line. It imports nothing of JAX.
 """
@@ -1259,6 +1275,358 @@ def phase_evaluate(model, smi):
 
 
 
+# Phases 19-22: sequential inference at full width (the shipped checkpoint in
+# bf16). Every path runs through run_counted (all counters at 0 just before,
+# read just after) and must launch only the wgmma inference kernel; each
+# launch's (B, Lq, Lk) is recorded (record_shapes) for phase 22.
+#   19. run_tsnpe on 10-D gaussian_linear: 2 rounds x 1024 simulations,
+#       no_filtering (1024, then 2048 context rows), rejection truncation
+#       (allowed false negatives 1e-4, 4096 support samples, candidate batches
+#       of 16,384), qry_chunk 2048, collect_diagnostics. Launches per round: 8
+#       for the CachedPosterior precompute (all 10 dims in one encode), 160
+#       for the 4096 threshold draws (10 dims x 8 layers x 2 chunks), 640 per
+#       rejection round of a proposal draw (16,384 candidates = 8 chunks); then
+#       sample(10_240) under phase 5's posterior check (480). One round again
+#       in SIR mode (oversample 32): 8 + 160 to build, 1280 for 1024 draws
+#       (32,768 rows = 16 chunks).
+#   20. scripts/calibrate_torch_sequential.py's protocols at seed 0:
+#       sample_refined on two_moons (1024 of 8192 proposals) and the ratio
+#       log_prob on 10-D gaussian_linear (4096 draws: 240 launches; the
+#       512-row classifier against 10,000 rows padded to 10,240: 16), each
+#       reading inside its band from the JAX package on the CPU over seeds 0-9
+#       (scripts/torch_sequential_bands.json).
+#   21. audit_binary (8 tasks x (8 + 8) launches; ECE under its band's upper
+#       edge), RestrictedPrior (one labelled round of 4096 prior draws, then
+#       4096 draws, 16 launches per round of 16,384 candidates), the
+#       unconditional estimator (4 clusters on 4096 N(0, I) draws: moments and
+#       median |log_prob - prior log_prob| inside their bands) and
+#       `python -m npe_pfn_tpu_torch tsnpe` run in-process.
+#   22. the inference kernel at each new (B, Lq, Lk) those phases launched,
+#       against its plain version (phase 3's tolerance), timed as phase 4.
+SEQ_DIM = 10
+TSNPE_KW = dict(num_rounds=2, num_simulations=2048, sampling_method="rejection",
+                allowed_false_negatives=1e-4, num_samples_to_estimate_support=4096,
+                support_batch_size=16_384, filtering="no_filtering")
+SEQ_QRY_CHUNK = 2048
+SIR_DRAWS = 1024
+LAUNCHES_SEQ = {"support_precompute": 8, "support_threshold_draws": 160,
+                "support_rejection_round": 640, "sample_10240": 480,
+                "sir_draws_1024": 1280, "ratio_log_prob": 256, "audit_binary": 128,
+                "restricted_round": 16}
+
+
+def _seqcal():
+    """scripts/calibrate_torch_sequential.py: the protocols and their bands."""
+    import importlib
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    return importlib.import_module("calibrate_torch_sequential")
+
+
+def _seq_bands():
+    with open(_seqcal().BANDS) as f:
+        return json.load(f)["bands"]
+
+
+class record_shapes:
+    """Within the block, the (B, Lq, Lk) of every wgmma forward launch, in a
+    Counter; the launch itself is the wrapped one, so the counters count as
+    before."""
+
+    def __enter__(self):
+        from collections import Counter
+
+        from npe_pfn_tpu_torch.ops import flash_attention as fa
+
+        self.shapes, self._fa = Counter(), fa
+        self._launch = fa.FWD_LAUNCHERS["wgmma"]
+
+        def launch(q, k, *rest):
+            self.shapes[(q.shape[0], q.shape[1], k.shape[1])] += 1
+            return self._launch(q, k, *rest)
+
+        fa.FWD_LAUNCHERS["wgmma"] = launch
+        return self.shapes
+
+    def __exit__(self, *exc):
+        self._fa.FWD_LAUNCHERS["wgmma"] = self._launch
+
+
+def expect_counts(path, counts, want):
+    if counts != (want, want, 0):
+        raise AssertionError(f"{path}: (all, wgmma, wmma) launches {counts}, expected "
+                             f"({want}, {want}, 0)")
+
+
+def _all_wgmma(path, counts):
+    if counts[0] == 0 or counts != (counts[0], counts[0], 0):
+        raise AssertionError(f"{path}: (all, wgmma, wmma) launches {counts}; the path must "
+                             f"launch the kernel, all of the wgmma design")
+
+
+def _in_band(name, value, band, side="both"):
+    lo, hi = band
+    ok = math.isfinite(value) and (value <= hi if side == "upper" else lo <= value <= hi)
+    edge = f"<= {hi:.4f}" if side == "upper" else f"[{lo:.4f}, {hi:.4f}]"
+    log(f"  {name} {value:.4f} (band {edge}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def fa_launches():
+    from npe_pfn_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_row_attention.launches
+
+
+def phase_tsnpe(model, smi):
+    """run_tsnpe at full width with exact launches per step, sample(10_240)
+    from the fitted estimator under phase 5's check, and one SIR round."""
+    import torch
+
+    from npe_pfn_tpu_torch import NPEPFN, PosteriorSupport, get_task
+    from npe_pfn_tpu_torch.tsnpe import run_tsnpe
+
+    dev = torch.device(DEVICE)
+    task = get_task("gaussian_linear", dim=SEQ_DIM, device=dev)
+    x_o = task.simulate(torch.Generator(dev).manual_seed(900), 1)[1][0]
+    est = NPEPFN(prior=task.prior, model=model, filter_type="no_filtering",
+                 qry_chunk=SEQ_QRY_CHUNK, seed=0)
+    # Marks (what, time, launches so far) after each bind of the context, each
+    # PosteriorSupport built and each draw from it, read after a synchronize.
+    marks = []
+
+    def marked(fn, what):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            marks.append((what(*a), time.perf_counter(), fa_launches()))
+            return out
+        return call
+
+    est.append_simulations = marked(est.append_simulations,
+                                    lambda theta, x: f"bind {theta.shape[0]} simulations")
+    init, draw = PosteriorSupport.__init__, PosteriorSupport.sample
+    PosteriorSupport.__init__ = marked(init, lambda *a: "build the truncation")
+    PosteriorSupport.sample = marked(draw, lambda s, g, shape: f"draw {shape[0]} from it")
+    diags = []
+    t0 = time.perf_counter()
+    try:
+        (_, proposals), seconds, counts = run_counted(lambda: run_tsnpe(
+            task.simulator, task.prior, x_o, generator=torch.Generator(dev).manual_seed(901),
+            estimator=est, collect_diagnostics=diags, return_proposals=True, **TSNPE_KW))
+    finally:
+        del est.append_simulations
+        PosteriorSupport.__init__, PosteriorSupport.sample = init, draw
+    support = proposals[1]
+    sim_diag = support.last_diagnostics  # the draw of round 2's simulations
+    want = (LAUNCHES_SEQ["support_precompute"] + LAUNCHES_SEQ["support_threshold_draws"]
+            + LAUNCHES_SEQ["support_rejection_round"] * (diags[0]["rounds"]
+                                                         + sim_diag["rounds"]))
+    prev_t, prev_n = t0, 0
+    for what, at, n in marks:
+        log(f"tsnpe: {what}: {at - prev_t:.4f} s, {n - prev_n} launches")
+        prev_t, prev_n = at, n
+    for d in diags:
+        log(f"tsnpe round {d['round']} truncation: threshold {d['log_prob_threshold']:.4f}, "
+            f"acceptance {d['acceptance_rate']:.4f}, pre-reject keep rate "
+            f"{d['prereject_keep_rate']:.4f}, padded {d['padded']}, rounds {d['rounds']} "
+            f"(the diagnostics draw)")
+    log(f"tsnpe round 2 simulations from the truncation: acceptance "
+        f"{sim_diag['acceptance_rate']:.4f}, pre-reject keep rate "
+        f"{sim_diag['prereject_keep_rate']:.4f}, padded {sim_diag['padded']}, rounds "
+        f"{sim_diag['rounds']}")
+    log(f"tsnpe: run_tsnpe {seconds:.4f} s, {est.num_simulations} simulations; kernel launches "
+        f"{counts} (expected {want}); {smi}")
+    expect_counts("tsnpe", counts, want)
+    launches = counts[0]
+    if est.num_simulations != TSNPE_KW["num_simulations"] or sim_diag["padded"]:
+        raise AssertionError(f"tsnpe: {est.num_simulations} simulations, diagnostics {sim_diag}")
+    # Scored again at another batch size, a row near the threshold may round
+    # to the other side of it (cuBLAS picks its GEMM by shape): 99% must stay.
+    per_round = TSNPE_KW["num_simulations"] // TSNPE_KW["num_rounds"]
+    inside = float(support.support_check(est._theta_train[per_round:]).float().mean())
+    log(f"tsnpe: round 2 simulations inside the truncation, rescored: {inside:.4f} "
+        f"(bound >= 0.99) {'ok' if inside >= 0.99 else 'FAIL'}")
+    if inside < 0.99:
+        raise AssertionError("tsnpe: round 2 simulated outside the truncated support")
+
+    gen = torch.Generator(dev).manual_seed(902)
+    samples, s_seconds, counts = run_counted(lambda: est.sample(SAMPLES, x_o, generator=gen))
+    log(f"tsnpe sample({SAMPLES}) from the fitted estimator: {s_seconds:.4f} s, kernel "
+        f"launches {counts}; {smi}")
+    expect_counts("tsnpe sample", counts, LAUNCHES_SEQ["sample_10240"])
+    mu, sd = task.posterior_moments(x_o)
+    mean_z = ((samples.mean(0) - mu).abs() / sd).max().item()
+    ratio = samples.std(0) / sd
+    ok = (bool(torch.isfinite(samples).all()) and mean_z <= MAX_MEAN_Z
+          and STD_RATIO[0] <= ratio.min().item() and ratio.max().item() <= STD_RATIO[1])
+    log(f"tsnpe posterior check: max |mean - posterior mean| / posterior std {mean_z:.3f} "
+        f"(bound {MAX_MEAN_Z}); std / posterior std {ratio.min().item():.3f}.."
+        f"{ratio.max().item():.3f} (bound {STD_RATIO}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("tsnpe: samples disagree with the analytic posterior")
+
+    sir, b_seconds, b_counts = run_counted(lambda: PosteriorSupport(
+        task.prior, est, x_o, generator=torch.Generator(dev).manual_seed(903),
+        sampling_method="sir", oversample_sir=32, allowed_false_negatives=1e-4,
+        num_samples_to_estimate_support=4096, batch_size=16_384))
+    expect_counts("sir build", b_counts, LAUNCHES_SEQ["support_precompute"]
+                  + LAUNCHES_SEQ["support_threshold_draws"])
+    draws, d_seconds, d_counts = run_counted(
+        lambda: sir.sample(torch.Generator(dev).manual_seed(904), (SIR_DRAWS,)))
+    expect_counts("sir draws", d_counts, LAUNCHES_SEQ["sir_draws_1024"])
+    diag = sir.last_diagnostics
+    log(f"tsnpe SIR round (oversample 32, {SIR_DRAWS} draws of {32 * SIR_DRAWS}): build "
+        f"{b_seconds:.4f} s ({b_counts[0]} launches), draw {d_seconds:.4f} s ({d_counts[0]} "
+        f"launches); ESS fraction {diag['ess_fraction']:.4f}, dead groups {diag['dead_groups']}; "
+        f"{smi}")
+    if draws.shape != (SIR_DRAWS, SEQ_DIM) or not bool(torch.isfinite(draws).all()) \
+            or not 0.0 < diag["ess_fraction"] <= 1.0:
+        raise AssertionError(f"SIR: draws {tuple(draws.shape)}, diagnostics {diag}")
+    return dict(seconds=seconds, launches=launches, sample_seconds=s_seconds,
+                rounds=[d for d in diags], sim_round=sim_diag, sir=diag, sir_seconds=d_seconds,
+                est=est, task=task, x_o=x_o, support=support)
+
+
+def phase_refine_ratio(model, smi):
+    """The refine and ratio protocols of scripts/calibrate_torch_sequential.py
+    at seed 0, each inside its JAX band."""
+    seqcal, bands = _seqcal(), _seq_bands()
+    out, failed = {}, []
+    for what, want in (("refine", None), ("ratio", LAUNCHES_SEQ["ratio_log_prob"])):
+        reads, seconds, counts = run_counted(lambda: getattr(seqcal, f"torch_{what}")(model, 0))
+        log(f"{what} (seed 0): {seconds:.4f} s, kernel launches {counts}; {smi}")
+        if want is None:
+            _all_wgmma(what, counts)
+        else:
+            expect_counts(what, counts, want)
+        for m in seqcal.BANDED[what]:
+            if not _in_band(f"{what}.{m}", reads[m], bands[f"{what}.{m}"]["band"]):
+                failed.append(f"{what}.{m}")
+        extra = {k: v for k, v in reads.items() if k not in seqcal.BANDED[what]}
+        if extra:
+            log(f"  unbanded: {extra}")
+        out[what] = dict(reads, seconds=seconds, launches=counts[0])
+    if failed:
+        raise AssertionError(f"readings outside their JAX bands: {failed}")
+    return out
+
+
+def phase_heads(model, tsnpe, smi):
+    """audit_binary, RestrictedPrior, the unconditional estimator and the CLI."""
+    import torch
+
+    from npe_pfn_tpu_torch import RestrictedPrior
+    from npe_pfn_tpu_torch import __main__ as cli
+
+    seqcal, bands = _seqcal(), _seq_bands()
+    out, failed = {}, []
+    reads, seconds, counts = run_counted(lambda: seqcal.torch_ece(model, 0))
+    log(f"audit_binary (seed 0): {seconds:.4f} s, kernel launches {counts}; {smi}")
+    expect_counts("audit_binary", counts, LAUNCHES_SEQ["audit_binary"])
+    if not _in_band("ece.ece", reads["ece"], bands["ece.ece"]["band"], side="upper"):
+        failed.append("ece.ece")
+    log(f"  mean |p - p_true| {reads['mean_abs_prob_error']:.4f} (unbanded)")
+    out["audit_binary"] = dict(reads, seconds=seconds, launches=counts[0])
+
+    # RestrictedPrior on the TSNPE task: θ labelled 1 inside the truncation of
+    # phase 19, 0 outside; then 4096 draws. All must lie in the prior's
+    # support, and more of them inside the truncation than of the prior's.
+    task, support = tsnpe["task"], tsnpe["support"]
+    dev = torch.device(DEVICE)
+    theta = task.prior.sample(torch.Generator(dev).manual_seed(910), (4096,))
+    labels = support.support_check(theta).float()
+    rp = RestrictedPrior(task.prior, model=model, seed=0)
+    rp.append_simulations(theta, labels)
+    draws, seconds, counts = run_counted(
+        lambda: rp.sample(torch.Generator(dev).manual_seed(911), (4096,)))
+    rounds = counts[0] // LAUNCHES_SEQ["restricted_round"]
+    expect_counts("restricted_prior", counts, LAUNCHES_SEQ["restricted_round"] * rounds)
+    acceptance = float(rp.accept_reject_fn(task.prior.sample(
+        torch.Generator(dev).manual_seed(912), (rp.batch_size,))).float().mean())
+    in_prior = bool(task.prior.support_check(draws).all())
+    share = float(support.support_check(draws).float().mean())
+    prior_share = float(labels.mean())
+    ok = draws.shape == (4096, SEQ_DIM) and in_prior and share > prior_share
+    log(f"restricted_prior: context {rp._ctx_theta.shape[0]} rows "
+        f"({int(rp._ctx_labels.sum())} positive), 4096 draws in {seconds:.4f} s, {rounds} "
+        f"round(s) of {rp.batch_size} candidates, acceptance {acceptance:.4f}, kernel launches "
+        f"{counts}; all in the prior's support {in_prior}; inside the truncation {share:.4f} "
+        f"of the draws vs {prior_share:.4f} of the prior's {'ok' if ok else 'FAIL'}; {smi}")
+    if not ok:
+        failed.append("restricted_prior")
+    out["restricted_prior"] = dict(seconds=seconds, launches=counts[0], share=share,
+                                   prior_share=prior_share, acceptance=acceptance)
+
+    reads, seconds, counts = run_counted(lambda: seqcal.torch_uncond(model, 0))
+    log(f"unconditional (seed 0): {seconds:.4f} s, kernel launches {counts}; {smi}")
+    _all_wgmma("unconditional", counts)
+    for m in seqcal.BANDED["uncond"]:
+        side = "both" if m.startswith("std") else "upper"
+        if not _in_band(f"uncond.{m}", reads[m], bands[f"uncond.{m}"]["band"], side):
+            failed.append(f"uncond.{m}")
+    out["unconditional"] = dict(reads, seconds=seconds, launches=counts[0])
+
+    argv = ["tsnpe", "--task", "gaussian_linear", "--num-sims", "1024", "--num-rounds", "2",
+            "--num-samples", "1024", "--seed", "0"]
+    _, seconds, counts = run_counted(lambda: cli.main(argv))
+    log(f"python -m npe_pfn_tpu_torch {' '.join(argv)}: exit 0 in {seconds:.4f} s, kernel "
+        f"launches {counts}; {smi}")
+    _all_wgmma("cli tsnpe", counts)
+    out["cli_tsnpe"] = dict(seconds=seconds, launches=counts[0])
+    if failed:
+        raise AssertionError(f"checks failed: {failed}")
+    return out
+
+
+def phase_seq_kernel(shapes):
+    """The inference kernel at every new (B, Lq, Lk) of phases 19-21 (all keys
+    valid): against its plain version with phase 3's tolerance, then timed
+    as phase 4 times its shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from npe_pfn_tpu_torch.ops import flash_attention as fa
+
+    known = {(b, lq, lk) for _, b, lq, lk in TIME_SHAPES}
+    rows, max_err = {}, 0.0
+    for (b, lq, lk), n in sorted(shapes.items()):
+        if (b, lq, lk) in known:
+            continue
+        name = f"B{b}_{lq}x{lk}"
+        h, hd = 2, 128
+        gen = torch.Generator(device=DEVICE).manual_seed(2)
+        q, k, v, m = _inputs(b, lq, lk, h, hd, torch.bfloat16, "all", gen)
+        out = fa.flash_row_attention(q, k, v, m)
+        ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
+        err = (out.float() - ref).abs().max().item()
+        tol = TOL_BF16 * max(1.0, ref.abs().max().item())
+        del out, ref
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"kernel disagrees with its plain version at {name}: "
+                                 f"{err:.3e} > {tol:.1e}")
+        max_err = max(max_err, err)
+        ms = cuda_time_ms(lambda: fa.flash_row_attention(q, k, v, m))
+        plain_ms = cuda_time_ms(lambda: fa.reference_row_attention(q, k, v, m), iters=3,
+                                warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=m[None, None, None, :]))
+        flops = 4.0 * b * h * lq * lk * hd
+        nbytes = 2.0 * (2 * b * lq * h * hd + 2 * b * lk * h * hd) + m.numel()
+        bound_ms, bound_by = _attention_bound(flops, nbytes)
+        log(f"kernel at a sequential shape [{name}, {n} launches in phases 19-21]: "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the bound); "
+            f"bound {bound_ms:.4f} ms by {bound_by}; plain {plain_ms:.4f} ms; "
+            f"scaled_dot_product_attention {library_ms:.4f} ms; max_abs_err {err:.3e} "
+            f"(tol {tol:.1e})")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, launches=n, max_abs_err=err)
+        del q, k, v, qt, kt, vt
+    return rows, max_err
+
+
 def main():
     import torch
 
@@ -1289,6 +1657,11 @@ def main():
     phase_cached(est, task, request, lp_ref, smi)
     phase_metrics(smi)
     evaluated, _ = phase_evaluate(est.model, smi)
+    with record_shapes() as seq_shapes:
+        tsnpe = phase_tsnpe(est.model, smi)
+        refined = phase_refine_ratio(est.model, smi)
+        heads = phase_heads(est.model, tsnpe, smi)
+    seq_rows, _ = phase_seq_kernel(seq_shapes)
     csrc = "npe_pfn_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_row_attention",
@@ -1305,7 +1678,14 @@ def main():
                               "sample_batched_box": LAUNCHES["sample_batched"]
                               * batched["box_rounds"],
                               **{f"evaluate_task {name}": e["launches"]
-                                 for name, e in evaluated.items()}},
+                                 for name, e in evaluated.items()},
+                              "run_tsnpe": tsnpe["launches"],
+                              "tsnpe sample_10240": LAUNCHES_SEQ["sample_10240"],
+                              "tsnpe sir_draws_1024": LAUNCHES_SEQ["sir_draws_1024"],
+                              "sample_refined two_moons": refined["refine"]["launches"],
+                              "ratio_log_prob": refined["ratio"]["launches"],
+                              **{name: h["launches"] for name, h in heads.items()}},
+        "sequential_shapes": seq_rows,
         "registers": regs_of["fwd"][0], "spill_bytes": regs_of["fwd"][1],
     }]
     # Training kernels: launches over the 20 timed steps; times at the context

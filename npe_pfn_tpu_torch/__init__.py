@@ -9,9 +9,19 @@ hand-written CUDA kernel (``ops/csrc/flash_row_attention.cu``), built with
 nvcc at first use.
 """
 
-from . import distributions, filters, models, tasks  # noqa: F401
-from .estimator import NPEPFN  # noqa: F401
-from .models.checkpoint import load_default  # noqa: F401
-from .tasks import get_task  # noqa: F401
+__version__ = "0.1.0"
 
-__all__ = ["NPEPFN", "distributions", "filters", "get_task", "load_default", "models", "tasks"]
+from . import distributions, filters, models, tasks  # noqa: F401
+from .estimator import NPEPFN, DensityRatioEstimator  # noqa: F401
+from .models.checkpoint import load_default  # noqa: F401
+from .restricted_prior import RestrictedPrior  # noqa: F401
+from .serving import CachedPosterior  # noqa: F401
+from .support import PosteriorSupport, prereject_with_bounds  # noqa: F401
+from .tasks import get_task  # noqa: F401
+from .tsnpe import run_tsnpe, simulate_for_sbi  # noqa: F401
+from .unconditional import UnconditionalEstimator  # noqa: F401
+
+__all__ = ["NPEPFN", "CachedPosterior", "DensityRatioEstimator", "PosteriorSupport",
+           "RestrictedPrior", "UnconditionalEstimator", "distributions", "filters", "get_task",
+           "load_default", "models", "prereject_with_bounds", "run_tsnpe", "simulate_for_sbi",
+           "tasks", "__version__"]

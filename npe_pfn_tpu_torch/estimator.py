@@ -4,7 +4,9 @@ Counterpart of ``npe_pfn_tpu/estimator.py`` for a dense model: the
 autoregressive samplers and scorers over θ-dimensions (plain, with quantile
 target / feature transforms, and the context-subset ensemble), and ``NPEPFN``
 with ``sample``, ``sample_batched``, ``sample_batched_filtered``, ``log_prob``
-and ``log_prob_batched``, with an optional embedding net on x.
+(autoregressive, or ratio-based through ``DensityRatioEstimator``),
+``log_prob_batched`` and ``sample_refined`` (simulator-in-the-loop ABC-SIR),
+with an optional embedding net on x.
 
 Where the JAX package scans (``lax.scan`` over dimensions, ``lax.map`` over
 query chunks, ``lax.while_loop`` over rejection rounds) the port loops in
@@ -26,7 +28,7 @@ from . import filters as filters_mod
 from . import preprocessing as pp
 from . import rejection
 from ._device import resolve_device
-from .distributions import Distribution
+from .distributions import BoxUniform, Distribution
 from .models import checkpoint as ckpt_mod
 from .models import regressor
 from .models import transformer
@@ -314,6 +316,133 @@ def split_context_ensemble(theta_ctx, x_ctx, ctx_mask, num_ensembles: int):
     return theta_ctx[..., idx, :], x_ctx[..., idx, :], ctx_mask[..., idx]
 
 
+# ---------------------------------------------------------------------------
+# Density-ratio log_prob (classifier path)
+# ---------------------------------------------------------------------------
+
+
+class DensityRatioEstimator:
+    """Ratio-based log_prob through a posterior-vs-uniform in-context classifier.
+
+    Posterior samples get label 1 and uniform draws from their padded bounding
+    box label 0; then log p(θ | x) ≈ log u(θ) + log(p₁ + ε) − log(p₀ + ε), with
+    p the classifier head ``regressor.predict_proba``. The fit is cached on
+    (x, context version, number of samples, padding). ``num_fits > 1`` ensembles
+    classifier contexts (disjoint posterior subsets, fresh negatives) and
+    averages their probabilities; the contexts are one leading dim, so all of
+    them share one kernel launch per layer.
+    """
+
+    def __init__(self, model: TabICAModel, context_size: int = 512, num_fits: int = 1,
+                 eps: float = 1e-12):
+        self.model = model
+        self.context_size = context_size
+        self.num_fits = num_fits
+        self.eps = eps
+        self._cache_key = None
+        self._ctx_theta = None  # [num_fits, context_size, dθ]
+        self._ctx_labels = None  # [num_fits, context_size]
+        self._low = self._high = None
+        self._log_u = 0.0
+
+    def refit_necessary(self, x, ctx_fingerprint, n_samples: int, padding: float) -> bool:
+        if self._cache_key is None:
+            return True
+        kx, kf, kn, kp = self._cache_key
+        return not (kn == n_samples and kp == padding and kf == ctx_fingerprint
+                    and kx.shape == x.shape and bool(torch.allclose(kx, x)))
+
+    def fit(self, generator: torch.Generator, posterior_samples, x, ctx_fingerprint,
+            padding: float = 0.1):
+        """Build the classifier contexts from ``posterior_samples [n, dθ]``:
+        one permutation sliced (wrapping) into disjoint positive halves, and a
+        uniform negative half per fit."""
+        n_half = self.context_size // 2
+        lo, hi = posterior_samples.amin(dim=0), posterior_samples.amax(dim=0)
+        span = hi - lo
+        self._low, self._high = lo - padding * span, hi + padding * span
+        self._log_u = float(-torch.log((self._high - self._low).clamp_min(1e-12)).sum())
+        n_post = posterior_samples.shape[0]
+        dev = posterior_samples.device
+        perm = torch.randperm(n_post, generator=generator, device=generator.device).to(dev)
+        box = BoxUniform(self._low, self._high)
+        rows = torch.arange(n_half, device=dev)
+        ctxs = [torch.cat([posterior_samples[perm[(rows + f_i * n_half) % n_post]],
+                           box.sample(generator, (n_half,))]) for f_i in range(self.num_fits)]
+        labels = torch.cat([torch.ones(n_half, device=dev), torch.zeros(n_half, device=dev)])
+        self._ctx_theta = torch.stack(ctxs)
+        self._ctx_labels = labels.expand(self.num_fits, -1).contiguous()
+        self._cache_key = (x.clone(), ctx_fingerprint, n_post, padding)
+
+    @torch.no_grad()
+    def ratio_log_probs(self, theta, chunk_size: int = 10_000):
+        """log p(θ | x) ``[n]``: θ outside the box gets the floor
+        log u + log ε − log(1 + ε). θ is classified ``chunk_size`` rows at a
+        time, each chunk padded to a multiple of 256 rows; the fits' class
+        probabilities (not their log-ratios) are averaged."""
+        p1 = []
+        for chunk in theta.split(chunk_size):
+            nc = chunk.shape[0]
+            chunk = F.pad(chunk, (0, 0, 0, _round_up(nc, 256) - nc))
+            qry = chunk.expand((self._ctx_theta.shape[0],) + chunk.shape)
+            probs = regressor.predict_proba(self.model, self._ctx_theta, self._ctx_labels, qry)
+            p1.append(probs[..., 1].mean(dim=0)[:nc])
+        p1 = torch.cat(p1)
+        inside = ((theta >= self._low) & (theta <= self._high)).all(dim=-1)
+        lp = self._log_u + torch.log(p1 + self.eps) - torch.log(1.0 - p1 + self.eps)
+        floor = self._log_u + math.log(self.eps) - math.log(1 + self.eps)
+        return torch.where(inside, lp, torch.full_like(lp, floor))
+
+
+# ---------------------------------------------------------------------------
+# Simulator-in-the-loop refinement (ABC-SIR)
+# ---------------------------------------------------------------------------
+
+
+def run_simulator(simulator, generator: torch.Generator, theta):
+    """``simulator(generator, theta [N, dθ]) -> x [N, ...]``, float32 (the JAX
+    ``NPEPFN._run_simulator``).
+
+    The port's simulators are batched maps (``tasks.registry.Simulator``). A
+    simulator that does not return one row per θ row is not batched, and it
+    raises: there is no per-row host loop to fall back on."""
+    x = simulator(generator, theta)
+    x = torch.as_tensor(x, dtype=torch.float32, device=theta.device)
+    if x.dim() == 0 or x.shape[0] != theta.shape[0]:
+        raise ValueError(
+            f"the simulator must be batched, simulator(generator, theta [N, d]) -> x [N, ...]: "
+            f"theta {tuple(theta.shape)} gave x {tuple(x.shape)}")
+    return x
+
+
+def abc_log_weights(d, eps: Optional[float] = None, eps_quantile: float = 0.02,
+                    kernel: str = "gaussian", log_correction=None):
+    """ABC-SIR log-weights of proposals at simulated distances ``d [P]``.
+
+    ε is ``eps`` or the ``eps_quantile`` of ``d`` (at least 1e-8); the kernel
+    is "gaussian" (−½ (d/ε)²) or "hard" (0 where d ≤ ε, else −inf), plus
+    ``log_correction`` (importance correction) where given. Non-finite weights
+    become −inf; if every weight is −inf they all become 0 (uniform over the
+    proposals). Returns (logw, eps, ess, all_dead), eps / ess / all_dead as
+    0-dim tensors."""
+    if kernel not in ("gaussian", "hard"):
+        raise ValueError("kernel must be 'gaussian' or 'hard'")
+    eps_val = torch.quantile(d, eps_quantile) if eps is None else torch.as_tensor(
+        eps, dtype=d.dtype, device=d.device)
+    eps_val = eps_val.clamp_min(1e-8)
+    if kernel == "gaussian":
+        logw = -0.5 * (d / eps_val) ** 2
+    else:
+        logw = torch.where(d <= eps_val, 0.0, -math.inf)
+    if log_correction is not None:
+        logw = logw + log_correction
+    logw = torch.where(torch.isfinite(logw), logw, -math.inf)
+    all_dead = torch.isinf(logw).all()
+    logw = torch.where(all_dead, torch.zeros_like(logw), logw)
+    w = torch.softmax(logw, dim=0)
+    return logw, eps_val, 1.0 / (w**2).sum(), all_dead
+
+
 def _interleave(parts):
     """Per-order draws ``[(theta [..., P, dθ], lp [..., P]), ...]`` interleaved
     row by row into ``[..., P·K, dθ]``, so that a trimmed tail stays balanced
@@ -329,7 +458,9 @@ class NPEPFN:
     Simulations are the in-context table. ``sample`` filters them per
     observation, draws posterior samples autoregressively and rejects those
     outside the prior's support; ``sample_batched`` shares one random context
-    across observations; ``log_prob`` scores θ. ``num_ensembles`` mixes
+    across observations; ``log_prob`` scores θ (autoregressively or through
+    the ratio classifier); ``sample_refined`` resamples draws by how well
+    their simulations match the observation. ``num_ensembles`` mixes
     context-subset members, ``num_order_ensembles`` factorization orders;
     ``target_transform`` / ``feature_transform`` "quantile" add normal-score
     maps. Runs on ``device`` (CUDA unless the caller passes ``device="cpu"``),
@@ -345,6 +476,8 @@ class NPEPFN:
         embedding_net: Optional[Callable] = None,
         log_prob_mode: str = "autoregressive",
         qry_chunk: int = 1024,
+        ratio_context_size: int = 512,
+        num_ratio_fits: int = 1,
         seed: int = 0,
         show_progress_bars: bool = False,
         x_shape=None,
@@ -379,13 +512,23 @@ class NPEPFN:
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._theta_train = None
         self._x_train = None
+        self._ctx_version = 0
+        self.ratio_context_size = int(ratio_context_size)
+        self.num_ratio_fits = int(num_ratio_fits)
+        self._ratio = self._new_ratio()
+
+    def _new_ratio(self):
+        return DensityRatioEstimator(self.model, context_size=self.ratio_context_size,
+                                     num_fits=self.num_ratio_fits)
 
     # -- state ---------------------------------------------------------------
 
     def __getstate__(self):
-        """A ``torch.Generator`` does not pickle: keep its state instead."""
+        """A ``torch.Generator`` does not pickle: keep its state instead. The
+        fitted ratio classifier is dropped and rebuilt empty."""
         state = self.__dict__.copy()
         state["_generator"] = self._generator.get_state()
+        state["_ratio"] = None
         return state
 
     def __setstate__(self, state):
@@ -393,6 +536,7 @@ class NPEPFN:
         self.__dict__.update(state)
         self._generator = torch.Generator(device=self.device)
         self._generator.set_state(gen_state)
+        self._ratio = self._new_ratio()
 
     # -- data ----------------------------------------------------------------
 
@@ -407,6 +551,7 @@ class NPEPFN:
         if self.embedding_net is not None:
             x = self._prep_obs(x).reshape(theta.shape[0], -1)
         self._theta_train, self._x_train = theta, x
+        self._ctx_version += 1
         return self
 
     def _tensor(self, a):
@@ -604,6 +749,66 @@ class NPEPFN:
             out.append(acceptance)
         return out[0] if len(out) == 1 else tuple(out)
 
+    @torch.no_grad()
+    def sample_refined(
+        self,
+        num_samples,
+        x,
+        simulator,
+        generator: Optional[torch.Generator] = None,
+        num_proposals: Optional[int] = None,
+        eps: Optional[float] = None,
+        eps_quantile: float = 0.02,
+        kernel: str = "gaussian",
+        importance_correct: bool = False,
+        max_iters: int = 10,
+        max_sampling_batch_size: int = 10_000,
+    ):
+        """Simulator-in-the-loop (ABC-SIR) refinement of posterior samples.
+
+        Draws ``num_proposals`` (default max(8 · num_samples, 8192)) proposals
+        from ``sample``, simulates each once with the batched ``simulator``,
+        weights them by the ABC kernel of their z-scored distance to the
+        observation (``abc_log_weights``; with ``importance_correct`` also by
+        prior / AR density) and resamples ``num_samples`` rows. Costs
+        ``num_proposals`` simulations. Diagnostics (ess, eps, num_proposals,
+        min_distance, fallback_uniform) land in ``last_refine_diagnostics``."""
+        num_samples = self._num_from_shape(num_samples)
+        if kernel not in ("gaussian", "hard"):
+            raise ValueError("kernel must be 'gaussian' or 'hard'")
+        if self._x_train is None:
+            raise RuntimeError("call append_simulations before sample_refined")
+        if num_proposals is None:
+            num_proposals = max(8 * num_samples, 8192)
+        generator = generator or self._generator
+        proposals = self.sample(num_proposals, x, generator=generator, max_iters=max_iters,
+                                max_sampling_batch_size=max_sampling_batch_size)
+        x_o = self._one_obs(x)
+        x_sim = run_simulator(simulator, generator, proposals)
+        if self.embedding_net is not None:
+            x_sim = x_sim.reshape((-1,) + self.x_shape) if self.x_shape is not None \
+                else x_sim.reshape(num_proposals, -1)
+            x_sim = self._tensor(self.embedding_net(x_sim))
+        x_sim = x_sim.reshape(num_proposals, -1)
+        sd_x = torch.std(self._x_train, dim=0, correction=0).clamp_min(1e-6)
+        d = torch.linalg.vector_norm((x_sim - x_o) / sd_x, dim=-1)
+        correction = None
+        if importance_correct:
+            logq = self.log_prob(proposals, x, generator=generator, mode="autoregressive",
+                                 max_sampling_batch_size=max_sampling_batch_size)
+            correction = self.prior.log_prob(proposals) - logq
+        logw, eps_val, ess, all_dead = abc_log_weights(d, eps, eps_quantile, kernel, correction)
+        idx = torch.multinomial(torch.softmax(logw, dim=0), num_samples, replacement=True,
+                                generator=generator)
+        self.last_refine_diagnostics = {
+            "ess": float(ess),
+            "eps": float(eps_val),
+            "num_proposals": int(num_proposals),
+            "min_distance": float(d.min()),
+            "fallback_uniform": bool(all_dead),
+        }
+        return proposals[idx]
+
     def _batched_rejection(self, generator, x, ctx, num_samples: int, n_over: int,
                            max_iters: int):
         """The JAX ``_fused_batched_rejection`` on the device, one host read
@@ -733,15 +938,6 @@ class NPEPFN:
 
     # -- densities ------------------------------------------------------------
 
-    def _check_mode(self, mode):
-        mode = mode or self.log_prob_mode
-        if mode == "ratio_based":
-            raise NotImplementedError(
-                "log_prob(mode='ratio_based') and DensityRatioEstimator are not ported yet "
-                "(ROADMAP Queue 1 item 5)")
-        if mode != "autoregressive":
-            raise ValueError(f"unknown log_prob mode {mode!r}")
-
     def _score_chunked(self, ctx, x_rows, theta_rows, max_sampling_batch_size: int):
         """Score rows in chunks of ``max_sampling_batch_size`` rounded up to
         ``qry_chunk``, each padded to a chunk multiple."""
@@ -755,12 +951,28 @@ class NPEPFN:
 
     @torch.no_grad()
     def log_prob(self, theta, x, generator: Optional[torch.Generator] = None,
-                 mode: Optional[str] = None, max_sampling_batch_size: int = 10_000):
-        """log q(θ | x) ``[n]`` for one observation, autoregressively, on the
-        observation's filtered context; with ensembles, the mixture density."""
-        self._check_mode(mode)
+                 mode: Optional[str] = None, num_ratio_samples: int = 4096,
+                 padding: float = 0.1, max_sampling_batch_size: int = 10_000):
+        """log q(θ | x) ``[n]`` for one observation. "autoregressive": on the
+        observation's filtered context (with ensembles, the mixture density).
+        "ratio_based": ``num_ratio_samples`` posterior draws against uniform
+        draws from their box padded by ``padding``, classified in context
+        (``DensityRatioEstimator``); the fit is reused while x, the
+        simulations, the sample count and the padding stay the same."""
+        mode = mode or self.log_prob_mode
+        if mode not in ("autoregressive", "ratio_based"):
+            raise ValueError(f"unknown log_prob mode {mode!r}")
         theta = self._validate(self._tensor(theta), "theta")
+        x_raw = x  # sample() embeds the observation itself
         x = self._one_obs(x)
+        generator = generator or self._generator
+        if mode == "ratio_based":
+            self._check_data()
+            if self._ratio.refit_necessary(x, self._ctx_version, num_ratio_samples, padding):
+                post = self.sample(num_ratio_samples, x_raw, generator=generator)
+                self._ratio.model = self.model
+                self._ratio.fit(generator, post, x, self._ctx_version, padding)
+            return self._ratio.ratio_log_probs(theta, chunk_size=max_sampling_batch_size)
         ctx = self.get_context(x, generator)
         x_rows = x.broadcast_to((theta.shape[0], x.shape[-1]))
         return self._score_chunked(ctx, x_rows, theta, max_sampling_batch_size)

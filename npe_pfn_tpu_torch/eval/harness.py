@@ -64,12 +64,15 @@ def evaluate_task(
     ``device="cpu"``; the task's prior must live there too); returns (and
     optionally checkpoints) the results. An x wider than the model's feature
     budget goes through a seeded random projection to at most 24 features.
-    ``refine_num_proposals > 0`` (simulator-in-the-loop sampling) is not
-    ported yet."""
-    if refine_num_proposals:
-        raise NotImplementedError(
-            "refine_num_proposals > 0 needs NPEPFN.sample_refined, which is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+
+    ``refine_num_proposals > 0`` samples the posteriors of tasks with a
+    reference posterior by simulator-in-the-loop ABC-SIR
+    (``NPEPFN.sample_refined``): each observation costs that many extra
+    simulations, which the cell records (``sims_refine_per_obs``,
+    ``sims_total_per_obs``) beside the mean ESS (``refine_ess_mean``). Tasks
+    scored by the joint diagnostic raise: it draws one θ per test observation,
+    so refinement would multiply the budget by num_test with no matched plain
+    arm."""
     device = resolve_device(device)
     estimator_kwargs = dict(estimator_kwargs or {})
     estimator_kwargs.setdefault("device", device)
@@ -109,10 +112,16 @@ def evaluate_task(
             cell: Dict = {"wall_s": None}
             if task.posterior_sampler is not None:
                 n_obs = min(n_obs_eval, num_test)
-                c2sts, w2s, mmds = [], [], []
+                c2sts, w2s, mmds, esss = [], [], [], []
                 for j in range(n_obs):
-                    post = est.sample(num_posterior_samples, x_test[j], generator=_generator(
-                        device, seed, _POST, num_cal, j))
+                    gen = _generator(device, seed, _POST, num_cal, j)
+                    if refine_num_proposals:
+                        post = est.sample_refined(
+                            num_posterior_samples, x_test[j], task.simulator, generator=gen,
+                            num_proposals=refine_num_proposals, **(refine_kwargs or {}))
+                        esss.append(est.last_refine_diagnostics["ess"])
+                    else:
+                        post = est.sample(num_posterior_samples, x_test[j], generator=gen)
                     if j not in gt_cache:
                         gt_cache[j] = task.posterior_sampler(
                             _generator(device, seed, _GT, j), x_test[j], num_posterior_samples)
@@ -123,7 +132,16 @@ def evaluate_task(
                 cell["c2st"] = float(torch.stack(c2sts).mean())
                 cell["wasserstein"] = float(torch.stack(w2s).mean())
                 cell["mmd"] = float(torch.stack(mmds).mean())
+                if refine_num_proposals:
+                    cell["sims_refine_per_obs"] = int(refine_num_proposals)
+                    cell["sims_total_per_obs"] = int(num_cal + refine_num_proposals)
+                    cell["refine_ess_mean"] = float(np.mean(esss))
             else:
+                if refine_num_proposals:
+                    raise ValueError(
+                        f"task {task.name!r} has no ground-truth sampler: the joint diagnostic "
+                        "draws 1 θ per test obs, so refined sampling has no budget-matched "
+                        "plain arm there")
                 # Joint diagnostic: one posterior draw per test observation;
                 # {(θ̂, x*)} against {(θ*, x*)}, both copies of an x in one fold.
                 post = est.sample_batched(1, x_test, generator=_generator(

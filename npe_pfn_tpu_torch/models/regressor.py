@@ -4,7 +4,10 @@ Counterpart of ``npe_pfn_tpu/models/regressor.py``: ``fit_encode`` binds a
 context (normalize + encode once), ``predict_logits`` decodes query rows
 against it, and ``sample_y`` / ``log_prob_y`` read the bar distribution in the
 original target space. Features and targets are z-scored with masked context
-statistics; densities carry the ``-log sd_y`` correction.
+statistics; densities carry the ``-log sd_y`` correction. ``predict_mean`` /
+``predict_quantiles`` read point predictions, and ``predict_proba`` /
+``predict_proba_multiclass`` use the posterior mean of {0, 1} targets as an
+in-context classifier.
 """
 
 from __future__ import annotations
@@ -126,3 +129,56 @@ def log_prob_y(model: TabICAModel, fitted: FittedContext, logits, y):
     y ``[..., Q]``."""
     mu, sd = fitted.stats.mu_y[..., None], fitted.stats.sd_y[..., None]
     return bar.log_prob(model.borders, logits, (y - mu) / sd) - torch.log(sd)
+
+
+def predict_mean(model: TabICAModel, fitted: FittedContext, logits):
+    """E[y] in the original space, ``[..., Q]``."""
+    mn = bar.mean(model.borders, logits)
+    return mn * fitted.stats.sd_y[..., None] + fitted.stats.mu_y[..., None]
+
+
+def predict_quantiles(model: TabICAModel, fitted: FittedContext, logits, quantiles):
+    """Quantiles in the original space: logits ``[..., Q, B]``, quantiles
+    ``[K]`` -> ``[..., Q, K]``; the K levels are one broadcast dim."""
+    q = torch.as_tensor(quantiles, dtype=logits.dtype, device=logits.device)
+    yn = bar.icdf(model.borders, logits.unsqueeze(-2), q)
+    return yn * fitted.stats.sd_y[..., None, None] + fitted.stats.mu_y[..., None, None]
+
+
+# --- One-shot convenience (fit + predict; the in-context classifier heads).
+
+
+def predict_full(model: TabICAModel, x_ctx, y_ctx, x_qry,
+                 feat_mask: Optional[torch.Tensor] = None,
+                 ctx_mask: Optional[torch.Tensor] = None):
+    """fit + predict in one call; returns (logits, fitted)."""
+    fitted = fit_encode(model, x_ctx, y_ctx, feat_mask, ctx_mask)
+    return predict_logits(model, fitted, x_qry), fitted
+
+
+def predict_proba(model: TabICAModel, x_ctx, labels, x_qry,
+                  feat_mask: Optional[torch.Tensor] = None,
+                  ctx_mask: Optional[torch.Tensor] = None):
+    """Binary classifier: the posterior mean of a {0, 1} target is P(y = 1 | x).
+    Context ``[..., N, F]`` with labels ``[..., N]``, queries ``[..., Q, F]``;
+    returns ``[..., Q, 2]`` (class 0, class 1). Leading dims are independent
+    classifier contexts, encoded and decoded in one launch per layer."""
+    logits, fitted = predict_full(model, x_ctx, labels.float(), x_qry, feat_mask, ctx_mask)
+    p1 = predict_mean(model, fitted, logits).clamp(1e-6, 1.0 - 1e-6)
+    return torch.stack([1.0 - p1, p1], dim=-1)
+
+
+def predict_proba_multiclass(model: TabICAModel, x_ctx, labels, x_qry, num_classes: int,
+                             feat_mask: Optional[torch.Tensor] = None,
+                             ctx_mask: Optional[torch.Tensor] = None):
+    """One-vs-rest multi-class classifier: K posterior-mean regressions on the
+    indicators 1[label = k], normalized; returns ``[..., Q, num_classes]``. The
+    K classes are a leading dim, so that all of them share one kernel launch
+    per layer (the JAX package ``vmap``s them)."""
+    classes = torch.arange(num_classes, device=labels.device)
+    y_k = (labels.long()[None] == classes.reshape((-1,) + (1,) * labels.dim())).float()
+    lead = (num_classes,) + tuple(x_ctx.shape[:-2])
+    logits, fitted = predict_full(model, x_ctx.expand(lead + x_ctx.shape[-2:]), y_k,
+                                  x_qry.expand(lead + x_qry.shape[-2:]), feat_mask, ctx_mask)
+    p = predict_mean(model, fitted, logits).clamp(1e-6, 1.0 - 1e-6).movedim(0, -1)
+    return p / p.sum(dim=-1, keepdim=True)

@@ -405,3 +405,41 @@ def test_kernel_at_api_shapes(cuda_device, b, lq, lk, kind):
     ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
     torch.testing.assert_close(out.float(), ref, rtol=1e-2, atol=1e-2)
     assert _slice_rel_err(out, ref) <= 1e-2
+
+
+# --- The inference kernel at the shapes of sequential inference --------------
+# bf16, H 2, hd 128, every launch of the wgmma design, against the plain
+# version to 1e-2 x max(1, max|plain|) (chip_smoke.py phase 3's tolerance; no
+# shape here has 10 keys or fewer) and per (batch row, head) slice: the
+# PosteriorSupport precompute at 1024 context rows (B 250 = 10 dims x 25
+# tokens) and its candidate scoring (B 25, 2048-row chunks against 1024 keys);
+# the classifier heads' 512-row context (B 11 = 10 θ features + 1) encoded and
+# decoded against the ratio log_prob's 10,240 and the restricted prior's
+# 16,384 query rows; audit_binary's tasks (B 6, 256 x 256); the unconditional
+# estimator's clusters (B 9 and 17, 512-row contexts, some padded, 1024-row
+# query chunks); two_moons' refinement at 1000 simulations (B 9, 1024 rows);
+# the CLI's TSNPE (512 and 1024 context rows, 1024-row chunks). These are the
+# shapes chip_smoke.py phases 19-21 launched on the H100.
+SEQ_SHAPES = [(250, 1024, 1024, 1024), (25, 2048, 1024, 1024), (11, 512, 512, 512),
+              (11, 10_240, 512, 512), (11, 16_384, 512, 512), (6, 256, 256, 256),
+              (9, 512, 512, 400), (17, 512, 512, 512), (9, 1024, 512, 400),
+              (17, 1024, 512, 512), (9, 1024, 1024, 1000), (9, 2048, 1024, 1000),
+              (250, 512, 512, 512), (25, 1024, 512, 512), (17, 1024, 1024, 1024),
+              (25, 1024, 1024, 1024)]
+
+
+@pytest.mark.parametrize("b,lq,lk,kind", SEQ_SHAPES)
+def test_kernel_at_sequential_shapes(cuda_device, b, lq, lk, kind):
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).bfloat16()
+               for s in ((b, lq, 2, 128), (b, lk, 2, 128), (b, lk, 2, 128)))
+    m = _mask(kind, b, lk, gen, cuda_device)
+    before = (fa.flash_row_attention.wgmma_launches, fa.flash_row_attention.wmma_launches)
+    out = fa.flash_row_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    assert (fa.flash_row_attention.wgmma_launches,
+            fa.flash_row_attention.wmma_launches) == (before[0] + 1, before[1])
+    ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
+    tol = 1e-2 * max(1.0, ref.abs().max().item())
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert _slice_rel_err(out, ref) <= 1e-2

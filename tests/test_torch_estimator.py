@@ -178,13 +178,12 @@ def test_sample_aligns_batch_to_qry_chunk(models):
     assert est._effective_context_size == 256  # 64 sims -> 256-row granule
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(log_prob_mode="ratio_based"), dict(num_experts=2), dict(row_pool_slots=4),
-])
+@pytest.mark.parametrize("kwargs", [dict(num_experts=2), dict(row_pool_slots=4)])
 def test_unported_options_raise(models, kwargs):
-    """What the port still lacks raises and names its ROADMAP item: the
-    ratio-based log_prob, and models with MoE or row pooling. (Embedding nets
-    are ported: tests/test_torch_embeddings.py.)"""
+    """What the port still lacks raises and names its ROADMAP item: models
+    with MoE or row pooling. (Embedding nets are ported:
+    tests/test_torch_embeddings.py; the ratio-based log_prob:
+    tests/test_torch_ratio.py.)"""
     _, tm = models
     cfg_keys = ("num_experts", "row_pool_slots")
     cfg = dataclasses.replace(tm.cfg, **{k: v for k, v in kwargs.items() if k in cfg_keys})

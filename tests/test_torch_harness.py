@@ -5,7 +5,7 @@ grids. Exact checks: the cells' keys are the JAX harness's ``_cell_key`` of
 the grid, with its metric names; resuming keeps finished cells (wall_s and all)
 and runs only the missing ones; a second run from the same seeds reads the
 same numbers; ``summarize`` of a fixed results dict equals the JAX package's;
-refinement raises. Metric values differ from JAX's (other random streams) and
+refinement on a joint task raises. Metric values differ from JAX's (other random streams) and
 are only required finite, with c2st in [0, 1].
 """
 
@@ -95,9 +95,10 @@ def test_summarize_matches_jax():
 
 
 def test_refinement_and_narrow_models_raise(models):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _run(models[1], "gaussian_linear", num_cal_grid=(20,), seeds=(0,),
-             refine_num_proposals=64)
+    """Refinement on a task scored by the joint diagnostic raises, as in the
+    JAX harness (refinement itself: tests/test_torch_refine.py)."""
+    with pytest.raises(ValueError, match="ground-truth sampler"):
+        _run(models[1], "sir", num_cal_grid=(20,), seeds=(0,), refine_num_proposals=64)
     cfg = TabICAConfig(d_model=16, num_heads=2, num_layers=1, max_features=8, num_bars=16,
                        dtype="float32")
     narrow = TabICAModel.create(torch.Generator().manual_seed(0), cfg, torch.device("cpu"))

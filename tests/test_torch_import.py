@@ -38,7 +38,10 @@ def test_import_loads_no_jax():
         "import npe_pfn_tpu_torch.serving, npe_pfn_tpu_torch.utils.profiling\n"
         "import npe_pfn_tpu_torch.embeddings, npe_pfn_tpu_torch.distributions\n"
         "import npe_pfn_tpu_torch.eval.metrics, npe_pfn_tpu_torch.eval.harness\n"
-        "import npe_pfn_tpu_torch.utils.seeding\n"
+        "import npe_pfn_tpu_torch.utils.seeding, npe_pfn_tpu_torch.utils.roofline\n"
+        "import npe_pfn_tpu_torch.support, npe_pfn_tpu_torch.restricted_prior\n"
+        "import npe_pfn_tpu_torch.tsnpe, npe_pfn_tpu_torch.unconditional\n"
+        "import npe_pfn_tpu_torch.eval.calibration, npe_pfn_tpu_torch.__main__\n"
         "from npe_pfn_tpu_torch.tasks import get_task, list_tasks\n"
         "tasks = [get_task(n, device='cpu') for n in list_tasks()]\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -125,6 +128,23 @@ def test_eval_bands_follow_their_rule():
         "gaussian_linear_uniform", "high_dim_gaussian"}
     for name, entry in calib["tasks"].items():
         reads = [entry["jax"][f"num_cal=1000/seed={s}"]["c2st"] for s in seeds]
+        half = max(0.05, 3 * float(np.std(reads)))
+        np.testing.assert_allclose(entry["band"], [np.mean(reads) - half, np.mean(reads) + half],
+                                   rtol=1e-12, err_msg=name)
+
+
+def test_sequential_bands_follow_their_rule():
+    """Every band of chip_smoke.py's sequential phases comes from JAX readings
+    on seeds 0-9, all committed beside it: mean ± max(0.05, 3 × std)."""
+    with open(os.path.join(REPO, "scripts", "torch_sequential_bands.json")) as f:
+        calib = json.load(f)
+    want = {"refine.c2st", "refine.ess", "refine.eps", "ratio.pearson_r", "ece.ece",
+            "uncond.max_abs_mean", "uncond.std_min", "uncond.std_max",
+            "uncond.median_abs_lp_diff"}
+    assert set(calib["bands"]) == want
+    for name, entry in calib["bands"].items():
+        what, metric = name.split(".")
+        reads = [calib["readings"][what]["jax"][f"seed{s}"][metric] for s in range(10)]
         half = max(0.05, 3 * float(np.std(reads)))
         np.testing.assert_allclose(entry["band"], [np.mean(reads) - half, np.mean(reads) + half],
                                    rtol=1e-12, err_msg=name)
