@@ -74,8 +74,8 @@ Phases, each printing its own lines:
      16,384) with exact launches per step, sample(10_240) from the fitted
      estimator under phase 5's check, and one SIR round (oversample 32);
  20. sample_refined on two_moons and the ratio-based log_prob on 10-D
-     gaussian_linear (scripts/calibrate_torch_sequential.py's protocols,
-     seed 0), each reading inside its band from the JAX package over seeds
+     gaussian_linear (scripts/torch_sequential_protocols.py, seed 0), each
+     reading inside its band from the JAX package over seeds
      0-9 (scripts/torch_sequential_bands.json);
  21. audit_binary's ECE, RestrictedPrior, the unconditional estimator (4
      clusters on 4096 draws of N(0, I)) against their bands, and
@@ -1289,7 +1289,7 @@ def phase_evaluate(model, smi):
 #       sample(10_240) under phase 5's posterior check (480). One round again
 #       in SIR mode (oversample 32): 8 + 160 to build, 1280 for 1024 draws
 #       (32,768 rows = 16 chunks).
-#   20. scripts/calibrate_torch_sequential.py's protocols at seed 0:
+#   20. scripts/torch_sequential_protocols.py at seed 0:
 #       sample_refined on two_moons (1024 of 8192 proposals) and the ratio
 #       log_prob on 10-D gaussian_linear (4096 draws: 240 launches; the
 #       512-row classifier against 10,000 rows padded to 10,240: 16), each
@@ -1297,7 +1297,8 @@ def phase_evaluate(model, smi):
 #       (scripts/torch_sequential_bands.json).
 #   21. audit_binary (8 tasks x (8 + 8) launches; ECE under its band's upper
 #       edge), RestrictedPrior (one labelled round of 4096 prior draws, then
-#       4096 draws, 16 launches per round of 16,384 candidates), the
+#       4096 draws, 16 launches per round of 16,384 candidates, the rounds
+#       as RestrictedPrior.last_diagnostics records them), the
 #       unconditional estimator (4 clusters on 4096 N(0, I) draws: moments and
 #       median |log_prob - prior log_prob| inside their bands) and
 #       `python -m npe_pfn_tpu_torch tsnpe` run in-process.
@@ -1316,12 +1317,12 @@ LAUNCHES_SEQ = {"support_precompute": 8, "support_threshold_draws": 160,
 
 
 def _seqcal():
-    """scripts/calibrate_torch_sequential.py: the protocols and their bands."""
+    """scripts/torch_sequential_protocols.py: the protocols and their bands."""
     import importlib
     import os
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
-    return importlib.import_module("calibrate_torch_sequential")
+    return importlib.import_module("torch_sequential_protocols")
 
 
 def _seq_bands():
@@ -1485,12 +1486,13 @@ def phase_tsnpe(model, smi):
             or not 0.0 < diag["ess_fraction"] <= 1.0:
         raise AssertionError(f"SIR: draws {tuple(draws.shape)}, diagnostics {diag}")
     return dict(seconds=seconds, launches=launches, sample_seconds=s_seconds,
-                rounds=[d for d in diags], sim_round=sim_diag, sir=diag, sir_seconds=d_seconds,
+                sample_launches=counts[0], sir_launches=d_counts[0], rounds=[d for d in diags],
+                sim_round=sim_diag, sir=diag, sir_seconds=d_seconds,
                 est=est, task=task, x_o=x_o, support=support)
 
 
 def phase_refine_ratio(model, smi):
-    """The refine and ratio protocols of scripts/calibrate_torch_sequential.py
+    """The refine and ratio protocols of scripts/torch_sequential_protocols.py
     at seed 0, each inside its JAX band."""
     seqcal, bands = _seqcal(), _seq_bands()
     out, failed = {}, []
@@ -1541,7 +1543,7 @@ def phase_heads(model, tsnpe, smi):
     rp.append_simulations(theta, labels)
     draws, seconds, counts = run_counted(
         lambda: rp.sample(torch.Generator(dev).manual_seed(911), (4096,)))
-    rounds = counts[0] // LAUNCHES_SEQ["restricted_round"]
+    rounds = rp.last_diagnostics["rounds"]
     expect_counts("restricted_prior", counts, LAUNCHES_SEQ["restricted_round"] * rounds)
     acceptance = float(rp.accept_reject_fn(task.prior.sample(
         torch.Generator(dev).manual_seed(912), (rp.batch_size,))).float().mean())
@@ -1551,9 +1553,10 @@ def phase_heads(model, tsnpe, smi):
     ok = draws.shape == (4096, SEQ_DIM) and in_prior and share > prior_share
     log(f"restricted_prior: context {rp._ctx_theta.shape[0]} rows "
         f"({int(rp._ctx_labels.sum())} positive), 4096 draws in {seconds:.4f} s, {rounds} "
-        f"round(s) of {rp.batch_size} candidates, acceptance {acceptance:.4f}, kernel launches "
-        f"{counts}; all in the prior's support {in_prior}; inside the truncation {share:.4f} "
-        f"of the draws vs {prior_share:.4f} of the prior's {'ok' if ok else 'FAIL'}; {smi}")
+        f"round(s) of {rp.batch_size} candidates, padded {rp.last_diagnostics['padded']}, "
+        f"acceptance {acceptance:.4f}, kernel launches {counts}; all in the prior's support "
+        f"{in_prior}; inside the truncation {share:.4f} of the draws vs {prior_share:.4f} of "
+        f"the prior's {'ok' if ok else 'FAIL'}; {smi}")
     if not ok:
         failed.append("restricted_prior")
     out["restricted_prior"] = dict(seconds=seconds, launches=counts[0], share=share,
@@ -1680,8 +1683,8 @@ def main():
                               **{f"evaluate_task {name}": e["launches"]
                                  for name, e in evaluated.items()},
                               "run_tsnpe": tsnpe["launches"],
-                              "tsnpe sample_10240": LAUNCHES_SEQ["sample_10240"],
-                              "tsnpe sir_draws_1024": LAUNCHES_SEQ["sir_draws_1024"],
+                              "tsnpe sample_10240": tsnpe["sample_launches"],
+                              "tsnpe sir_draws_1024": tsnpe["sir_launches"],
                               "sample_refined two_moons": refined["refine"]["launches"],
                               "ratio_log_prob": refined["ratio"]["launches"],
                               **{name: h["launches"] for name, h in heads.items()}},

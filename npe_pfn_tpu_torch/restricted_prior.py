@@ -46,6 +46,7 @@ class RestrictedPrior(Distribution):
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._theta = self._labels = None  # accumulated labelled θ
         self._ctx_theta = self._ctx_labels = None  # the balanced classifier context
+        self.last_diagnostics: dict = {}
 
     @property
     def event_dim(self) -> int:
@@ -83,15 +84,18 @@ class RestrictedPrior(Distribution):
 
     def sample(self, generator: Optional[torch.Generator] = None, shape=()):
         """Prior candidates in rounds of ``batch_size``, kept where accepted;
-        after ``max_iters`` rounds the rest are unrestricted prior draws."""
+        after ``max_iters`` rounds the rest are unrestricted prior draws.
+        ``last_diagnostics`` records the rounds drawn and the padded count."""
         n = math.prod(int(d) for d in shape)
         generator = generator or self._generator
         fill = _Filler(n)
-        for _ in range(self.max_iters):
+        rounds = 0
+        for rounds in range(1, self.max_iters + 1):
             cand = self.prior.sample(generator, (self.batch_size,))
             fill.add(cand, self.accept_reject_fn(cand))
             if fill.done():
                 break
+        self.last_diagnostics = {"rounds": rounds, "padded": n - fill.filled}
         pad = None if fill.done() else self.prior.sample(generator, (n - fill.filled,))
         flat = fill.result(pad)
         return flat.reshape(tuple(shape) + (self.event_dim,)) if shape else flat[0]

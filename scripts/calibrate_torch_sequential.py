@@ -24,7 +24,9 @@ as it is taken, and taken readings are skipped, so runs resume and seeds can
 be split over processes. ``--bands`` writes ``scripts/torch_sequential_bands.json``
 (or ``--out``): for each protocol and metric with JAX readings on seeds 0-9,
 the band mean ± max(0.05, 3 × std over seeds), beside every reading.
-chip_smoke.py calls the ``torch_*`` functions below on the card (seed 0).
+The protocols and the port's side of them (the ``torch_*`` functions, which
+chip_smoke.py calls on the card at seed 0) are in
+``scripts/torch_sequential_protocols.py``; the JAX side is here.
 
     JAX_PLATFORMS=cpu python3 scripts/calibrate_torch_sequential.py --package jax \
         --protocols refine,ece,uncond --seeds 0,1,2,3,4
@@ -43,31 +45,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-
-PROTOCOLS = ("refine", "ratio", "ece", "uncond")
-REFINE = dict(num_cal=1000, num_samples=1024, num_proposals=8192, qry_chunk=2048)
-RATIO = dict(num_cal=10_000, context=2048, qry_chunk=2048, num_eval=10_000)
-UNCOND = dict(num=4096, clusters=4)
-# Stream tags: the JAX package splits PRNGKey(seed) into one key per tag; the
-# port seeds a torch.Generator with derive_seed(seed, tag).
-CAL, OBS, RUN, GT, METRIC = range(5)
-BANDED = {"refine": ("c2st", "ess", "eps"), "ratio": ("pearson_r",), "ece": ("ece",),
-          "uncond": ("max_abs_mean", "std_min", "std_max", "median_abs_lp_diff")}
-BANDS = os.path.join(REPO, "scripts", "torch_sequential_bands.json")
-MIN_HALF_WIDTH = 0.05
-MIN_SEEDS = 10
-
-
-def pearson(a, b) -> float:
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.corrcoef(a, b)[0, 1])
-
-
-def _uncond_readings(samples, lp, prior_lp) -> dict:
-    s = np.asarray(samples, np.float64)
-    return {"max_abs_mean": float(np.abs(s.mean(0)).max()), "std_min": float(s.std(0).min()),
-            "std_max": float(s.std(0).max()),
-            "median_abs_lp_diff": float(np.median(np.abs(np.asarray(lp) - np.asarray(prior_lp))))}
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+from torch_sequential_protocols import (  # noqa: E402
+    BANDED, BANDS, CAL, GT, METRIC, MIN_HALF_WIDTH, MIN_SEEDS, OBS, PROTOCOLS, RATIO, REFINE,
+    RUN, UNCOND, _uncond_readings, pearson, torch_ece, torch_ratio, torch_refine,
+    torch_uncond)
 
 
 # -- the JAX package ---------------------------------------------------------
@@ -136,76 +118,6 @@ def jax_uncond(model, seed):
     theta_eval = prior.sample(keys[GT], (UNCOND["num"],))
     lp = est.log_prob(theta_eval, rng=keys[METRIC])
     return _uncond_readings(samples, lp, prior.log_prob(theta_eval))
-
-
-# -- the port (chip_smoke.py runs these on the card) -------------------------
-
-
-def _gen(device, seed, tag):
-    import torch
-
-    from npe_pfn_tpu_torch.utils.seeding import derive_seed
-
-    return torch.Generator(device).manual_seed(derive_seed(seed, tag))
-
-
-def torch_refine(model, seed):
-    from npe_pfn_tpu_torch import NPEPFN
-    from npe_pfn_tpu_torch.eval import metrics as M
-    from npe_pfn_tpu_torch.tasks import get_task
-
-    dev = model.device
-    task = get_task("two_moons", device=dev)
-    theta, x = task.simulate(_gen(dev, seed, CAL), REFINE["num_cal"])
-    x_o = task.simulate(_gen(dev, seed, OBS), 1)[1][0]
-    est = NPEPFN(prior=task.prior, model=model, qry_chunk=REFINE["qry_chunk"])
-    est.append_simulations(theta, x)
-    post = est.sample_refined(REFINE["num_samples"], x_o, task.simulator,
-                              generator=_gen(dev, seed, RUN),
-                              num_proposals=REFINE["num_proposals"])
-    diag = est.last_refine_diagnostics
-    plain = est.sample(REFINE["num_samples"], x_o, generator=_gen(dev, seed, RUN))
-    ref = task.posterior_sampler(_gen(dev, seed, GT), x_o, REFINE["num_samples"])
-    return {"c2st": float(M.c2st(_gen(dev, seed, METRIC), post, ref)), "ess": diag["ess"],
-            "eps": diag["eps"],
-            "c2st_plain": float(M.c2st(_gen(dev, seed, METRIC), plain, ref))}
-
-
-def torch_ratio(model, seed):
-    from npe_pfn_tpu_torch import NPEPFN
-    from npe_pfn_tpu_torch.tasks import get_task
-
-    dev = model.device
-    task = get_task("gaussian_linear", device=dev)
-    theta, x = task.simulate(_gen(dev, seed, CAL), RATIO["num_cal"])
-    x_o = task.simulate(_gen(dev, seed, OBS), 1)[1][0]
-    est = NPEPFN(prior=task.prior, model=model, filter_context_size=RATIO["context"],
-                 qry_chunk=RATIO["qry_chunk"])
-    est.append_simulations(theta, x)
-    theta_eval = task.posterior_sampler(_gen(dev, seed, GT), x_o, RATIO["num_eval"])
-    lp = est.log_prob(theta_eval, x_o, generator=_gen(dev, seed, RUN), mode="ratio_based")
-    return {"pearson_r": pearson(lp.cpu(), task.posterior_log_prob(x_o, theta_eval).cpu())}
-
-
-def torch_ece(model, seed):
-    from npe_pfn_tpu_torch.eval import calibration
-
-    out = calibration.audit_binary(model, _gen(model.device, seed, RUN))
-    return {"ece": out["ece"], "mean_abs_prob_error": out["mean_abs_prob_error"]}
-
-
-def torch_uncond(model, seed):
-    from npe_pfn_tpu_torch import UnconditionalEstimator
-    from npe_pfn_tpu_torch.tasks import get_task
-
-    dev = model.device
-    prior = get_task("gaussian_linear", device=dev).prior
-    est = UnconditionalEstimator(num_clusters=UNCOND["clusters"], model=model, seed=seed)
-    est.append_simulations(prior.sample(_gen(dev, seed, CAL), (UNCOND["num"],)))
-    samples = est.sample(UNCOND["num"], generator=_gen(dev, seed, RUN))
-    theta_eval = prior.sample(_gen(dev, seed, GT), (UNCOND["num"],))
-    lp = est.log_prob(theta_eval, generator=_gen(dev, seed, METRIC))
-    return _uncond_readings(samples.cpu(), lp.cpu(), prior.log_prob(theta_eval).cpu())
 
 
 # -- running the protocols -----------------------------------------------------

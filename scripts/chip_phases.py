@@ -6,8 +6,7 @@
         --trees parent=_chip_scratch/parent,change=.,change=.,parent=_chip_scratch/parent
 
 ``seq`` runs phases 19-22 (sequential inference and the kernel at its
-shapes) of this checkout after the build; with ``--no-bands`` the readings of
-phases 20-21 are printed without their band gates (before the bands exist).
+shapes) of this checkout after the build, with every gate of chip_smoke.py.
 ``eval`` runs phases 17-18 (metrics and ``evaluate_task`` on the twelve
 tasks). With ``--trees`` each ``label=dir`` (a checkout of the repo, e.g. a
 ``git archive`` of the parent commit) runs in its own process, one after the
@@ -24,7 +23,7 @@ import sys
 import time
 
 
-def run_here(phases, bands):
+def run_here(phases):
     """The phases of the checkout in the working directory."""
     root = os.getcwd()
     sys.path.insert(0, root)
@@ -38,10 +37,6 @@ def run_here(phases, bands):
         raise SystemExit(f"npe_pfn_tpu_torch is not {root}'s: {npe_pfn_tpu_torch.__file__}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_phases.py runs on a CUDA card")
-    if not bands:
-        inf = float("inf")
-        cs._seq_bands = lambda: {f"{w}.{m}": {"band": [-inf, inf]}
-                                 for w, ms in cs._seqcal().BANDED.items() for m in ms}
     smi = cs.phase_device()
     cs.phase_build()
     model = load_default(torch.device("cuda"))
@@ -72,11 +67,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", choices=("seq", "eval"), required=True)
     ap.add_argument("--trees", default=None, help="label=dir,... run in turns")
-    ap.add_argument("--no-bands", action="store_true", help="print phases 20-21 ungated")
     ap.add_argument("--label", default="this", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.trees is None:
-        times = run_here(args.phases, not args.no_bands)
+        times = run_here(args.phases)
         print(f"PAIR {args.label}: " + json.dumps({k: round(v, 3) for k, v in times.items()}),
               flush=True)
         return
@@ -84,7 +78,7 @@ def main():
         label, tree = item.split("=", 1)
         # The phases of the tree's own chip_smoke.py, run by this script's copy.
         cmd = [sys.executable, os.path.abspath(__file__), "--phases", args.phases, "--label",
-               label] + (["--no-bands"] if args.no_bands else [])
+               label]
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
         proc = subprocess.run(cmd, cwd=os.path.abspath(tree), env=env, capture_output=True,
                               text=True)

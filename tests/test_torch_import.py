@@ -66,6 +66,7 @@ def _port_sources():
     for d, _, files in os.walk(root):
         yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "scripts", "torch_sequential_protocols.py")
 
 
 def test_sources_import_nothing_of_jax():
@@ -148,3 +149,24 @@ def test_sequential_bands_follow_their_rule():
         half = max(0.05, 3 * float(np.std(reads)))
         np.testing.assert_allclose(entry["band"], [np.mean(reads) - half, np.mean(reads) + half],
                                    rtol=1e-12, err_msg=name)
+
+
+def test_chip_smoke_sequential_protocols_load_no_jax():
+    """chip_smoke.py's phases 20-21 take their protocols and bands from
+    scripts/torch_sequential_protocols.py; loading them, and running one
+    protocol on a small model on the CPU, loads nothing of JAX."""
+    code = (
+        "import sys, torch, chip_smoke as cs\n"
+        "from npe_pfn_tpu_torch.models import TabICAConfig, TabICAModel\n"
+        "seqcal, bands = cs._seqcal(), cs._seq_bands()\n"
+        "assert set(bands) == {f'{w}.{m}' for w, ms in seqcal.BANDED.items() for m in ms}\n"
+        "cfg = TabICAConfig(d_model=32, num_heads=2, num_layers=2, max_features=8, "
+        "num_bars=32, dtype='float32')\n"
+        "model = TabICAModel.create(torch.Generator().manual_seed(0), cfg, device='cpu')\n"
+        "reads = seqcal.torch_ece(model, 0)\n"
+        "assert 0.0 <= reads['ece'] <= 1.0, reads\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
