@@ -37,10 +37,10 @@ Phases, each printing its own lines:
      of the bound, registers and spills, the plain versions' and
      scaled_dot_product_attention's (a yardstick only);
   9. the training path at full width: tabica_v6_best warm-started into the
-     pretrain_v7 recipe (8 datasets of 768 + 128 rows, bf16, remat), 1 + 20
+     pretrain_v7 recipe (8 datasets of 768 + 128 rows, bf16, remat), 1 + 5
      train_steps with finite loss and gradient norm and exactly 32 lse and 15
      backward launches per step, all of the wgmma design; then train.train()
-     for 3 steps with a validation and checkpoints in a temporary directory;
+     for 2 steps with a validation and checkpoints in a temporary directory;
  10. one fixed batch: loss and gradients through the kernels against the
      dense path with f32 scores;
  11. the NLL of tabica_v6_best on 4 x 32 tasks of the port's prior at lr 0,
@@ -81,9 +81,28 @@ Phases, each printing its own lines:
      clusters on 4096 draws of N(0, I)) against their bands, and
      `python -m npe_pfn_tpu_torch tsnpe` in-process;
  22. the inference kernel at each new shape phases 19-21 launched, against
-     its plain version and timed as in phase 4.
-Phases 12-16 and 19-21 time each call and assert that it launches only the
-wgmma inference kernel (no wmma, no training kernel), in exact counts where
+     its plain version and timed as in phase 4;
+ 23. pretraining at full width for a row-pooled model (row_pool_slots 8) and
+     a mixture-of-experts model (num_experts 4, moe_top_k 2) on the
+     pretrain_v7 trunk, from init_params (no checkpoint of either exists):
+     1 + 3 train_steps each with finite loss and gradient norm and exact lse
+     and backward launches, all wgmma; the MoE aux at init inside [0.95,
+     2.05]; phase 10's kernel-vs-dense check on one batch for each;
+ 24. sample(10_240) from both models (phase 23's last weights) on phase 5's
+     simulations: 480 launches a request; log_prob of a request's samples
+     through the kernels against the dense path (phase 6's bounds) and
+     against sample's own log-probs (the density bounds); with an f32 copy,
+     encode + decode against the joint forward (1e-3 x max(1, |logit|));
+ 25. FlowNPE, the trained-flow baseline: on 2-D gaussian_linear (2000
+     simulations) against the analytic posterior at tests/test_baselines.py's
+     tolerances; on 10-D (10k simulations, at most 100 epochs) timed only.
+Phase 20 also scores the committed classifier context of
+scripts/torch_ratio_context.npz and holds the classifier's probabilities to
+the CPU plain path's. Phases 3-4 and 7-8 include the row-pooled model's
+kernel shapes (B 8 x 2048 x 2048 inference, B 64 x 768 x 768 and 64 x 128 x
+768 training). Phases 12-16 and 19-21 time each call (phases 12-16 with no
+warm-up call of their own: a first call's set-up is in their times) and
+assert that it launches only the wgmma inference kernel (no wmma, no training kernel), in exact counts where
 the loops fix them (every path but the refinement, the unconditional
 estimator and the CLI, whose rejection rounds depend on the draws); phases
 12-16 hold samples to phase 5's posterior check and log-probs to a second
@@ -293,6 +312,8 @@ def phase_kernel_parity():
         ("harness decode 256x1000", 33, 256, 1000, 2, 128, bf16, "all"),
         ("harness encode num_cal 1000", 9, 1024, 1024, 2, 128, bf16, "first1000"),
         ("harness decode num_cal 1000", 33, 256, 1024, 2, 128, bf16, "first1000"),
+        # the row-pooled model's encode and decode chunks (phase 24): 8 slots
+        ("pooled encode/decode B8", 8, 2048, 2048, 2, 128, bf16, "shared"),
     ]
     main_err = None
     for name, b, lq, lk, h, hd, dtype, mask_kind in cases:
@@ -333,7 +354,9 @@ TIME_SHAPES = (("B25", 25, 2048, 2048), ("B17", 17, 2048, 2048),
                # the evaluation harness's smallest and largest (phase 18)
                ("B9_encode_10x10", 9, 10, 10), ("B9_decode_256x10", 9, 256, 10),
                ("B33_encode_1000x1000", 33, 1000, 1000),
-               ("B33_decode_256x1000", 33, 256, 1000))
+               ("B33_decode_256x1000", 33, 256, 1000),
+               # the row-pooled model's encode and decode chunks (phase 24)
+               ("B8_pooled", 8, 2048, 2048))
 
 
 def phase_kernel_time(regs_of):
@@ -388,6 +411,8 @@ TOL_GRAD_BF16 = 2e-2
 # The training shapes of the pretrain_v7 recipe: 8 datasets x 33 cell
 # tokens = 264 batch rows, 2 heads of 128, 768 context rows, 128 queries.
 TRAIN_B, TRAIN_H, TRAIN_HD, TRAIN_CTX, TRAIN_QRY = 264, 2, 128, 768, 128
+# The row-pooled model's (row_pool_slots 8): 8 datasets x 8 slots.
+POOL_B = 64
 
 
 def _rel_err(out, ref, zero_rows=None):
@@ -416,6 +441,8 @@ def phase_train_kernel_parity():
     cases = [
         ("train context", TRAIN_B, TRAIN_CTX, TRAIN_CTX, TRAIN_H, TRAIN_HD, bf16, "batch"),
         ("train query", TRAIN_B, TRAIN_QRY, TRAIN_CTX, TRAIN_H, TRAIN_HD, bf16, "batch"),
+        ("pooled context", POOL_B, TRAIN_CTX, TRAIN_CTX, TRAIN_H, TRAIN_HD, bf16, "batch"),
+        ("pooled query", POOL_B, TRAIN_QRY, TRAIN_CTX, TRAIN_H, TRAIN_HD, bf16, "batch"),
         ("ragged 1000x1500", 3, 1000, 1500, 2, 128, bf16, "shared"),
         ("empty row", 4, 200, 333, 2, 128, bf16, "batch_empty_row"),
         ("empty shared mask", 2, 64, 100, 2, 32, bf16, "shared_empty"),
@@ -501,8 +528,10 @@ def phase_train_kernel_time(regs_of):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
-    for shape, lq in (("context", TRAIN_CTX), ("query", TRAIN_QRY)):
-        b, lk, h, hd = TRAIN_B, TRAIN_CTX, TRAIN_H, TRAIN_HD
+    for shape, b, lq in (("context", TRAIN_B, TRAIN_CTX), ("query", TRAIN_B, TRAIN_QRY),
+                         ("pooled_context", POOL_B, TRAIN_CTX),
+                         ("pooled_query", POOL_B, TRAIN_QRY)):
+        lk, h, hd = TRAIN_CTX, TRAIN_H, TRAIN_HD
         q, k, v, m = _inputs(b, lq, lk, h, hd, torch.bfloat16, "batch_full", gen)
         d_out = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
         out, lse = fa.flash_row_attention_lse(q, k, v, m)
@@ -573,7 +602,9 @@ def train_recipe():
 PRIOR_V7 = dict(p_heteroscedastic=0.3, p_heavy_tail=0.2, p_categorical_feats=0.2,
                 p_multimodal=0.3, p_sym_fold=0.7, mm_mu_input_scale=0.3, mm_sig_lo=-1.7,
                 p_marginal_mixture=0.5)
-TRAIN_STEPS = 20  # timed, after one warm-up step
+# Timed, after one warm-up step: 20 until phases 23-25 came, 5 since, to
+# keep the whole script inside its deadline on a slow host (PERF.md §4).
+TRAIN_STEPS = 5
 
 
 def _shipped_checkpoint():
@@ -584,7 +615,7 @@ def _shipped_checkpoint():
 
 
 def phase_train():
-    """Warm-start tabica_v6_best and take 1 + 20 train_steps of the recipe;
+    """Warm-start tabica_v6_best and take 1 + TRAIN_STEPS train_steps of the recipe;
     then run train.train() briefly, checkpoints into a temporary directory."""
     import os
     import tempfile
@@ -650,7 +681,7 @@ def phase_train():
         raise AssertionError(f"launches by design {by_design}: every one must be wgmma")
 
     # The trainer as a user runs it: warm start, log, validate, checkpoint.
-    short = dataclasses.replace(tcfg, max_steps=3, warmup_steps=1, log_every=1, val_every=3,
+    short = dataclasses.replace(tcfg, max_steps=2, warmup_steps=1, log_every=1, val_every=2,
                                 ckpt_every=2)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "tabica_torch.npz")
@@ -661,7 +692,7 @@ def phase_train():
         same = all(torch.equal(back.params["head"][k].float(), trained.params["head"][k].float())
                    for k in ("w2", "b2"))
         files = sorted(os.listdir(tmp))
-        log(f"train.train: 3 steps with a validation and checkpoints in "
+        log(f"train.train: 2 steps with a validation and checkpoints in "
             f"{time.perf_counter() - t0:.1f} s; files {files}; reloaded head equal: {same}")
         if not same or "tabica_torch.npz.train_state.npz" not in files:
             raise AssertionError("train.train did not write a checkpoint that loads back")
@@ -682,38 +713,49 @@ def phase_train_path_parity():
     dense path with f32 scores, same weights (tabica_v6_best, bf16)."""
     import torch
 
+    from npe_pfn_tpu_torch.pretrain import warmstart
+
+    cfg, _, _ = train_recipe()
+    model = warmstart.load_warmstart(_shipped_checkpoint(), cfg, torch.device("cuda"))
+    return train_path_parity("train path", cfg, model.params, model.borders)
+
+
+def train_path_parity(label, cfg, params, borders):
+    """Phase 10's check: the loss and gradients of one fixed batch of the
+    recipe through the kernels against the dense path with f32 scores."""
+    import torch
+
     from npe_pfn_tpu_torch.ops import flash_attention as fa
-    from npe_pfn_tpu_torch.pretrain import prior, train, warmstart
+    from npe_pfn_tpu_torch.pretrain import prior, train
     from npe_pfn_tpu_torch.utils import pytree_io
 
-    dev = torch.device("cuda")
-    cfg, tcfg, pcfg = train_recipe()
-    model = warmstart.load_warmstart(_shipped_checkpoint(), cfg, dev)
+    dev = torch.device(DEVICE)
+    _, tcfg, pcfg = train_recipe()
     batch = prior.sample_tasks(torch.Generator(dev).manual_seed(123), tcfg.num_datasets, pcfg)
     out = {}
     for name, over in (("kernel", dict(flash="auto")),
                        ("dense", dict(flash="off", scores_dtype="float32"))):
-        named = {n: p.detach().requires_grad_(True)
-                 for n, p in pytree_io.flatten(model.params).items()}
+        named = {n: p.detach().requires_grad_(True) for n, p in pytree_io.flatten(params).items()}
         before = fa.flash_row_attention_bwd.launches
-        loss = train.batch_loss(dataclasses.replace(cfg, **over), model.borders,
+        loss = train.batch_loss(dataclasses.replace(cfg, **over), borders,
                                 pytree_io.unflatten(named), batch)
         grads = torch.autograd.grad(loss, list(named.values()))
         torch.cuda.synchronize()
         if (fa.flash_row_attention_bwd.launches > before) != (name == "kernel"):
             raise AssertionError(f"the {name} path took the wrong row attention")
         out[name] = (loss.item(), torch.cat([g.float().reshape(-1) for g in grads]))
+        del named, loss, grads
     (lk, gk), (ld, gd) = out["kernel"], out["dense"]
     rel_loss = abs(lk - ld) / abs(ld)
     rel_grad = ((gk - gd).norm() / gd.norm()).item()
     cosine = (torch.dot(gk, gd) / (gk.norm() * gd.norm())).item()
     ok = rel_loss <= MAX_REL_LOSS_DIFF and rel_grad <= MAX_REL_GRAD_ERR and cosine >= MIN_GRAD_COSINE
-    log(f"train path, kernel vs dense (f32 scores): loss {lk:.6f} vs {ld:.6f}, rel diff "
+    log(f"{label}, kernel vs dense (f32 scores): loss {lk:.6f} vs {ld:.6f}, rel diff "
         f"{rel_loss:.3e} (bound {MAX_REL_LOSS_DIFF:.0e}); gradient rel err {rel_grad:.4f} "
         f"(bound {MAX_REL_GRAD_ERR}), cosine {cosine:.6f} (bound {MIN_GRAD_COSINE}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the training path through the kernels disagrees with the dense path")
+        raise AssertionError(f"{label}: the kernels disagree with the dense path")
     return dict(rel_loss=rel_loss, rel_grad=rel_grad, cosine=cosine)
 
 
@@ -856,19 +898,26 @@ def phase_path_parity(est, request):
         used = flash_row_attention.launches - before
         if (used > 0) != (flash == "auto"):
             raise AssertionError(f"flash={flash!r} launched the kernel {used} times")
-    diff = (lps["auto"] - lps["off"]).abs()
-    if not bool(torch.isfinite(lps["auto"]).all() and torch.isfinite(lps["off"]).all()):
+    lp_parity("autoregressive_log_prob", lps["auto"], lps["off"])
+
+
+def lp_parity(label, kernel, dense):
+    """Phase 6's bounds on |kernel - dense| over the rows of two log_prob
+    readings of the same samples."""
+    import torch
+
+    if not bool(torch.isfinite(kernel).all() and torch.isfinite(dense).all()):
         raise AssertionError("non-finite log_prob")
+    diff = (kernel - dense).abs()
     med, p99, mx = (diff.median().item(), diff.quantile(0.99).item(), diff.max().item())
-    spread = lps["off"].std().item()
     ok = med <= MAX_MEDIAN_ABS_LP_DIFF and p99 <= MAX_P99_ABS_LP_DIFF
-    log(f"kernel path vs dense path: autoregressive_log_prob of {samples.shape[0]} samples: "
+    log(f"kernel path vs dense path: {label} of {kernel.shape[0]} samples: "
         f"|diff| median {med:.4f} (bound {MAX_MEDIAN_ABS_LP_DIFF}), p99 {p99:.4f} "
         f"(bound {MAX_P99_ABS_LP_DIFF}), max {mx:.4f}; log_prob std across samples "
-        f"{spread:.3f}; mean log_prob kernel {lps['auto'].mean().item():.4f} dense "
-        f"{lps['off'].mean().item():.4f} {'ok' if ok else 'FAIL'}")
+        f"{dense.std().item():.3f}; mean log_prob kernel {kernel.mean().item():.4f} dense "
+        f"{dense.mean().item():.4f} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the kernel path disagrees with the dense path")
+        raise AssertionError(f"{label}: the kernel path disagrees with the dense path")
 
 
 # Phases 12-16: the rest of the inference API at full width (the phase-5
@@ -1015,7 +1064,6 @@ def phase_sample_batched(est, task, x, smi):
     dev = torch.device(DEVICE)
     xs = x[10:10 + BATCHED_OBS]
     gen = lambda: torch.Generator(dev).manual_seed(200)  # noqa: E731
-    est.sample_batched(PER_OBS, xs, generator=gen())  # warm-up
     (theta, lp), seconds, counts = run_counted(
         lambda: est.sample_batched(PER_OBS, xs, generator=gen(), return_log_probs=True))
     _path_line("sample_batched", seconds, BATCHED_OBS * PER_OBS, counts, smi)
@@ -1060,7 +1108,6 @@ def phase_densities(est, request, batched, smi):
     log_prob_batched of the sample_batched draws against theirs (the same
     random context, from the same generator seed)."""
     x_o, samples, _, _, lps = request
-    est.log_prob(samples, x_o)  # warm-up
     lp, seconds, counts = run_counted(lambda: est.log_prob(samples, x_o))
     log(f"log_prob: {seconds:.4f} s for {samples.shape[0]} rows; kernel launches {counts}; {smi}")
     expect_launches("log_prob", counts)
@@ -1082,7 +1129,6 @@ def phase_filtered(est, task, x, smi):
 
     xs = x[30:30 + FILTERED_OBS]
     gen = lambda: torch.Generator(DEVICE).manual_seed(300)  # noqa: E731
-    est.sample_batched_filtered(PER_OBS, xs, generator=gen())  # warm-up
     (theta, lp), seconds, counts = run_counted(
         lambda: est.sample_batched_filtered(PER_OBS, xs, generator=gen(), return_log_probs=True))
     _path_line("sample_batched_filtered", seconds, FILTERED_OBS * PER_OBS, counts, smi)
@@ -1107,7 +1153,6 @@ def phase_ensembles(est, task, x_o, smi):
         ens = NPEPFN(prior=est.prior, model=est.model, filter_context_size=2048, qry_chunk=2048,
                      seed=0, **kw)
         ens.append_simulations(est._theta_train, est._x_train)
-        ens.sample(SAMPLES, x_o)  # warm-up
         (s, lp), seconds, counts = run_counted(lambda: ens.sample(
             SAMPLES, x_o, generator=torch.Generator(DEVICE).manual_seed(400),
             return_log_probs=True))
@@ -1132,7 +1177,6 @@ def phase_cached(est, task, request, lp_ref, smi):
     cp, pre_s, counts = run_counted(lambda: CachedPosterior(est, x_o))
     log(f"cached_precompute: {pre_s:.4f} s (first call); kernel launches {counts}; {smi}")
     expect_launches("cached_precompute", counts)
-    cp.sample(SAMPLES)  # warm-up
     s, seconds, counts = run_counted(
         lambda: cp.sample(SAMPLES, generator=torch.Generator(DEVICE).manual_seed(500)))
     _path_line("cached_sample", seconds, SAMPLES, counts, smi)
@@ -1510,9 +1554,52 @@ def phase_refine_ratio(model, smi):
         if extra:
             log(f"  unbanded: {extra}")
         out[what] = dict(reads, seconds=seconds, launches=counts[0])
+    out["ratio_context"] = ratio_context_check(model, seqcal, smi)
     if failed:
         raise AssertionError(f"readings outside their JAX bands: {failed}")
     return out
+
+
+# Phase 20, the committed classifier context (scripts/torch_ratio_context.npz,
+# from scripts/export_ratio_context.py): the card's ratio_log_probs against
+# the CPU plain path's, read as the classifier's probability p = sigmoid(lp -
+# log u) over the θ inside its box (outside, both give the same floor). On
+# the CPU the same reading with f32 scores moved p by a median of 3.0e-4 and
+# at most 0.0137 (the rounding noise of the bf16 scores; in log-ratio terms a
+# p99 of 5.2 nats, where p nears its 1e-6 clamp). The bounds sit at about 4x
+# the largest and 15x the median of that noise; a classifier that has broken
+# moves p by tenths. The θ outside the box take the floor log u + log ε -
+# log(1 + ε), where each device sums log u in f32 from the box's widths: a
+# few f32 ulps apart (the first card run read them unequal to the bit).
+# Launches: 8 layers x (1 encode + 1 decode chunk).
+MAX_MEDIAN_RATIO_P_DIFF = 0.005
+MAX_RATIO_P_DIFF = 0.05
+MAX_RATIO_FLOOR_REL = 1e-5
+RATIO_CONTEXT_LAUNCHES = 16
+
+
+def ratio_context_check(model, seqcal, smi):
+    import torch
+
+    ratio, theta, lp_cpu = seqcal.ratio_context(model)
+    lp, seconds, counts = run_counted(lambda: ratio.ratio_log_probs(theta))
+    expect_counts("ratio context", counts, RATIO_CONTEXT_LAUNCHES)
+    inside = ((theta >= ratio._low) & (theta <= ratio._high)).all(dim=-1)
+    p, p_cpu = (torch.sigmoid(a[inside] - ratio._log_u) for a in (lp, lp_cpu))
+    diff = (p - p_cpu).abs()
+    med, mx = diff.median().item(), diff.max().item()
+    floor_diff = ((lp[~inside] - lp_cpu[~inside]).abs() / lp_cpu[~inside].abs()).max().item()
+    ok = (bool(torch.isfinite(lp).all()) and floor_diff <= MAX_RATIO_FLOOR_REL
+          and med <= MAX_MEDIAN_RATIO_P_DIFF and mx <= MAX_RATIO_P_DIFF)
+    log(f"ratio_log_probs on the committed classifier context ({ratio._ctx_theta.shape[1]} rows, "
+        f"{theta.shape[0]} θ, {int(inside.sum())} inside its box): {seconds:.4f} s, launches "
+        f"{counts}; |p card - p CPU plain| median {med:.3e} (bound {MAX_MEDIAN_RATIO_P_DIFF}), "
+        f"max {mx:.3e} (bound {MAX_RATIO_P_DIFF}); floor rows' relative diff {floor_diff:.3e} "
+        f"(bound {MAX_RATIO_FLOOR_REL}) {'ok' if ok else 'FAIL'}; {smi}")
+    if not ok:
+        raise AssertionError("the card's ratio density disagrees with the CPU plain path's")
+    return dict(seconds=seconds, launches=counts[0], median_p_diff=med, max_p_diff=mx,
+                floor_rel_diff=floor_diff)
 
 
 def phase_heads(model, tsnpe, smi):
@@ -1630,6 +1717,236 @@ def phase_seq_kernel(shapes):
     return rows, max_err
 
 
+# Phases 23-24: the row-pooled and the MoE model on the pretrain_v7 trunk
+# (d_model 256, 2 heads of 128, 8 layers, 1024 bars, bf16), from init_params
+# with a seeded generator: the repository has no checkpoint of either.
+POOL_MOE = (("pooled", dict(row_pool_slots=8)), ("moe", dict(num_experts=4, moe_top_k=2)))
+POOL_MOE_STEPS = 3  # timed, after one warm-up step
+# Launches a step: 4 lse per layer (the context's and the queries' row
+# attention, forward and again in the remat recomputation) = 32, and 2
+# backward per layer less the last layer's context row attention, whose
+# output the loss never reads = 15 (phase 9's counts). The MoE aux does read
+# it: the last layer's context state goes through its router, so the MoE
+# model runs that backward too, 16 (tests/test_torch_cuda.py counts both).
+POOL_MOE_LAUNCHES = {"pooled": (32, 15), "moe": (32, 16)}
+# The aux at init: 1 under uniform routing, E/k = 2 under collapse
+# (tests/test_moe.py's anchors), with 0.05 of slack each side.
+MOE_AUX_INIT = (0.95, 2.05)
+# Phase 24: a request's launches (10 dims x 8 layers x (1 encode + 5 decode
+# chunks), as the dense model's: the pooled model's kernel batch is its 8
+# slots where the dense model's is its 17 or 25 cell tokens), and encode +
+# decode against the joint forward with an f32 copy.
+POOL_MOE_SAMPLE_LAUNCHES = 480
+MAX_ENCODE_DECODE_REL = 1e-3
+
+
+def phase_pool_moe_train(smi):
+    """1 + POOL_MOE_STEPS train_steps of each model, then phase 10's check."""
+    import torch
+
+    from npe_pfn_tpu_torch.models import TabICAModel
+    from npe_pfn_tpu_torch.ops import flash_attention as fa
+    from npe_pfn_tpu_torch.pretrain import prior, train
+
+    dev = torch.device(DEVICE)
+    base, tcfg, pcfg = train_recipe()
+    tokens = tcfg.num_datasets * (pcfg.num_ctx + pcfg.num_qry) * (pcfg.num_features + 1)
+    counters = (fa.flash_row_attention, fa.flash_row_attention_lse, fa.flash_row_attention_bwd)
+    out = {}
+    for i, (name, over) in enumerate(POOL_MOE):
+        cfg = dataclasses.replace(base, **over)
+        model = TabICAModel.create(torch.Generator(dev).manual_seed(train.derive_seed(23, i)),
+                                   cfg, dev)
+        params, borders = model.params, model.borders
+        opt_state = train.make_optimizer(tcfg).init(params)
+
+        def gen(step):
+            return torch.Generator(dev).manual_seed(train.derive_seed(tcfg.seed, step))
+
+        aux0 = None
+        if cfg.num_experts:  # the aux of the first step's batch at init
+            batch = prior.sample_tasks(gen(0), tcfg.num_datasets, pcfg)
+            with torch.no_grad():
+                aux0 = (train.batch_loss(cfg, borders, params, batch, moe_aux_weight=1.0)
+                        - train.batch_loss(cfg, borders, params, batch, moe_aux_weight=0.0)
+                        ).item()
+            del batch
+        t0 = time.perf_counter()
+        params, opt_state, loss, gnorm = train.train_step(cfg, tcfg, pcfg, params, opt_state,
+                                                          borders, gen(0))
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        losses, gnorms = [loss], [gnorm]
+        for c in counters:
+            c.launches = c.wgmma_launches = c.wmma_launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(1, POOL_MOE_STEPS + 1):
+            params, opt_state, loss, gnorm = train.train_step(cfg, tcfg, pcfg, params,
+                                                              opt_state, borders, gen(step))
+            losses.append(loss)
+            gnorms.append(gnorm)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        by_design = {c.__name__: (c.wgmma_launches, c.wmma_launches) for c in counters}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses, gnorms = torch.stack(losses).tolist(), torch.stack(gnorms).tolist()
+        n_lse, n_bwd = POOL_MOE_LAUNCHES[name]
+        want = {"flash_row_attention": 0,
+                "flash_row_attention_lse": POOL_MOE_STEPS * n_lse,
+                "flash_row_attention_bwd": POOL_MOE_STEPS * n_bwd}
+        log(f"{name} train ({over}): warm-up step {warm:.3f} s; {POOL_MOE_STEPS} steps in "
+            f"{seconds:.4f} s = {POOL_MOE_STEPS / seconds:.4f} steps/s = "
+            f"{POOL_MOE_STEPS * tokens / seconds:.1f} tokens/s ({tokens} cell tokens per step); "
+            f"peak memory {peak_gb:.3f} GB; loss {losses[0]:.4f}..{losses[-1]:.4f}; gnorm "
+            f"{min(gnorms):.4f}..{max(gnorms):.4f}; launches {launches} (expected {want}: "
+            f"{n_lse} lse and {n_bwd} backward a step); (wgmma, wmma) {by_design}"
+            + (f"; MoE aux at init {aux0:.4f} (band {MOE_AUX_INIT})" if aux0 is not None else "")
+            + f"; {smi}")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError(f"{name}: non-finite loss or gnorm: {losses} {gnorms}")
+        if launches != want or any(by_design[n] != (want[n], 0) for n in want):
+            raise AssertionError(f"{name}: launches {launches} by design {by_design}, "
+                                 f"expected {want}, all wgmma")
+        if aux0 is not None and not MOE_AUX_INIT[0] <= aux0 <= MOE_AUX_INIT[1]:
+            raise AssertionError(f"{name}: MoE aux at init {aux0} outside {MOE_AUX_INIT}")
+        parity = train_path_parity(f"{name} train path", cfg, params, borders)
+        out[name] = dict(model=TabICAModel(cfg=cfg, params=params, borders=borders),
+                         steps_per_s=POOL_MOE_STEPS / seconds,
+                         tokens_per_s=POOL_MOE_STEPS * tokens / seconds, peak_gb=peak_gb,
+                         launches=launches, aux0=aux0, parity=parity)
+        del opt_state
+    return out
+
+
+def phase_pool_moe_sample(trained, smi):
+    """sample(10_240) from each of phase 23's models, with phase 6's check,
+    the density check and the encode + decode identity."""
+    import torch
+
+    from npe_pfn_tpu_torch import NPEPFN, get_task
+    from npe_pfn_tpu_torch.models import transformer
+
+    dev = torch.device(DEVICE)
+    task = get_task("gaussian_linear", dim=10, device=dev)
+    cpu_task = get_task("gaussian_linear", dim=10, device="cpu")
+    theta, x = (a.to(dev) for a in cpu_task.simulate(torch.Generator().manual_seed(0), 10_000))
+    out = {}
+    for name, tr in trained.items():
+        model = tr["model"]
+        est = NPEPFN(prior=task.prior, model=model, filter_type="standardized_euclidean_filtering",
+                     filter_context_size=2048, qry_chunk=2048, seed=0)
+        est.append_simulations(theta, x)
+        est.sample(SAMPLES, x[0])  # warm-up
+        requests = []
+        for i in range(3):
+            gen = torch.Generator(dev).manual_seed(300 + i)
+            (samples, lps), seconds, counts = run_counted(
+                lambda: est.sample(SAMPLES, x[i + 1], generator=gen, return_log_probs=True))
+            expect_counts(f"{name} sample", counts, POOL_MOE_SAMPLE_LAUNCHES)
+            if samples.shape != (SAMPLES, 10) or not bool(torch.isfinite(samples).all()):
+                raise AssertionError(f"{name}: bad samples {tuple(samples.shape)}")
+            requests.append((x[i + 1], samples, seconds, lps))
+        times = [r[2] for r in requests]
+        median = sorted(times)[1]
+        log(f"{name} sample({SAMPLES}): {[round(t, 4) for t in times]} s, median {median:.4f} s "
+            f"= {SAMPLES / median:.1f} samples/s; {POOL_MOE_SAMPLE_LAUNCHES} launches a "
+            f"request, all wgmma; {smi}")
+        x_o, samples, _, lps = requests[0]
+        # One log_prob reading through the kernels serves phase 6's check (the
+        # dense path with the model's bf16 scores) and the density check.
+        lp, _, counts = run_counted(lambda: est.log_prob(samples, x_o))
+        expect_counts(f"{name} log_prob", counts, POOL_MOE_SAMPLE_LAUNCHES)
+        est.model = dataclasses.replace(model, cfg=dataclasses.replace(model.cfg, flash="off"))
+        lp_dense, _, counts = run_counted(lambda: est.log_prob(samples, x_o))
+        est.model = model
+        if counts[0]:
+            raise AssertionError(f"{name}: the dense path launched the kernel {counts[0]} times")
+        lp_parity(f"{name}: log_prob", lp, lp_dense)
+        density = density_check(f"{name}: sample's log-probs vs log_prob", lps, lp)
+
+        # encode + decode against the joint forward, f32 copy, on the
+        # request's context: x and θ_1..9 as 19 features, θ_0 the target;
+        # 2048 query rows of x_o and the request's θ_1..9.
+        cfg32 = dataclasses.replace(model.cfg, dtype="float32", scores_dtype="float32")
+        theta_ctx, x_ctx, ctx_mask = est.get_context(x_o)
+        x_c = torch.cat([x_ctx, theta_ctx[:, 1:]], dim=-1)
+        x_q = torch.cat([x_o.expand(2048, -1), samples[:2048, 1:]], dim=-1)
+        pad = cfg32.max_features - x_c.shape[-1]
+        x_c, x_q = (torch.nn.functional.pad(a, (0, pad)) for a in (x_c, x_q))
+        feat_mask = torch.arange(cfg32.max_features, device=dev) < 19
+        with torch.no_grad():
+            joint = transformer.forward(cfg32, model.params, x_c, theta_ctx[:, 0], x_q,
+                                        feat_mask, ctx_mask)
+            cache = transformer.encode_context(cfg32, model.params, x_c, theta_ctx[:, 0],
+                                               feat_mask, ctx_mask)
+            split = transformer.decode_queries(cfg32, model.params, cache, x_q, feat_mask,
+                                               ctx_mask)
+        rel = ((split - joint).abs() / joint.abs().clamp_min(1.0)).max().item()
+        ok = math.isfinite(rel) and rel <= MAX_ENCODE_DECODE_REL
+        log(f"{name} f32 copy, encode + decode vs joint forward ({x_c.shape[0]} context rows, "
+            f"{x_q.shape[0]} queries, cache slot axis {cache[0][0].shape[-4]}): max |diff| / "
+            f"max(1, |logit|) {rel:.3e} (bound {MAX_ENCODE_DECODE_REL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: encode + decode disagrees with the joint forward")
+        out[name] = dict(median_s=median, samples_per_s=SAMPLES / median,
+                         launches=POOL_MOE_SAMPLE_LAUNCHES, density=density,
+                         encode_decode_rel=rel)
+    return out
+
+
+# Phase 25: FlowNPE. 2-D gaussian_linear, 2000 simulations, max_epochs 150,
+# patience 15, against the analytic posterior at tests/test_baselines.py's
+# tolerances; 10-D, 10k simulations, at most 100 epochs, timed, unbanded.
+FLOW_MAX_MEAN_SDS, FLOW_STD_RATIO, FLOW_MAX_LP_OFFSET = 3.5, 0.35, 0.5
+
+
+def phase_flow_npe(smi):
+    import torch
+
+    from npe_pfn_tpu_torch import FlowNPE, get_task
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for dim, num, epochs, patience in ((2, 2000, 150, 15), (10, 10_000, 100, 20)):
+        task = get_task("gaussian_linear", dim=dim, device=dev)
+        theta, x = task.simulate(torch.Generator(dev).manual_seed(0), num)
+        flow = FlowNPE(dim_theta=dim, dim_x=dim, max_epochs=epochs, patience=patience, seed=0,
+                       device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained = flow.fit(theta, x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        line = (f"FlowNPE {dim}-D gaussian_linear, {num} simulations: {trained} epochs "
+                f"(max {epochs}, patience {patience}) in {seconds:.3f} s = "
+                f"{seconds / trained:.4f} s per epoch")
+        row = dict(epochs=trained, seconds=seconds, s_per_epoch=seconds / trained)
+        if dim == 2:
+            x_o = torch.tensor([0.8, -0.5], device=dev)
+            s = flow.sample(4000, x_o, generator=torch.Generator(dev).manual_seed(1))
+            gt = task.posterior_sampler(torch.Generator(dev).manual_seed(2), x_o, 4000)
+            mean_sds = ((s.mean(0) - gt.mean(0)).abs().max() / gt.std(0).max()).item()
+            std_dev = (s.std(0) / gt.std(0) - 1).abs().max().item()
+            lp, exact = flow.log_prob(gt[:512], x_o), task.posterior_log_prob(x_o, gt[:512])
+            offset = (lp - exact).mean().abs().item()
+            ok = (bool(torch.isfinite(lp).all()) and mean_sds < FLOW_MAX_MEAN_SDS
+                  and std_dev < FLOW_STD_RATIO and offset < FLOW_MAX_LP_OFFSET)
+            line += (f"; |mean - posterior mean| {mean_sds:.3f} posterior sds (bound "
+                     f"{FLOW_MAX_MEAN_SDS}), |std ratio - 1| {std_dev:.3f} (bound "
+                     f"{FLOW_STD_RATIO}), |mean(log_prob - exact)| {offset:.3f} (bound "
+                     f"{FLOW_MAX_LP_OFFSET}) {'ok' if ok else 'FAIL'}")
+            row.update(mean_sds=mean_sds, std_dev=std_dev, lp_offset=offset)
+            if not ok:
+                log(line)
+                raise AssertionError("FlowNPE disagrees with the analytic posterior")
+        log(f"{line}; {smi}")
+        out[f"{dim}d"] = row
+    return out
+
+
 def main():
     import torch
 
@@ -1665,6 +1982,11 @@ def main():
         refined = phase_refine_ratio(est.model, smi)
         heads = phase_heads(est.model, tsnpe, smi)
     seq_rows, _ = phase_seq_kernel(seq_shapes)
+    t_new = time.perf_counter()
+    pool_moe = phase_pool_moe_train(smi)
+    pool_moe_sample = phase_pool_moe_sample(pool_moe, smi)
+    flows = phase_flow_npe(smi)
+    log(f"phases 23-25 in {time.perf_counter() - t_new:.1f} s")
     csrc = "npe_pfn_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_row_attention",
@@ -1687,11 +2009,14 @@ def main():
                               "tsnpe sir_draws_1024": tsnpe["sir_launches"],
                               "sample_refined two_moons": refined["refine"]["launches"],
                               "ratio_log_prob": refined["ratio"]["launches"],
-                              **{name: h["launches"] for name, h in heads.items()}},
+                              **{name: h["launches"] for name, h in heads.items()},
+                              "ratio_context": refined["ratio_context"]["launches"],
+                              **{f"sample_10240 {name}": r["launches"]
+                                 for name, r in pool_moe_sample.items()}},
         "sequential_shapes": seq_rows,
         "registers": regs_of["fwd"][0], "spill_bytes": regs_of["fwd"][1],
     }]
-    # Training kernels: launches over the 20 timed steps; times at the context
+    # Training kernels: launches over phase 9's timed steps; times at the context
     # shape (B 264, 768 x 768), the query shape's under "query".
     for name, key, source, replaces, parts in (
         ("flash_row_attention_lse", "lse", "flash_row_attention.cu",
@@ -1704,9 +2029,17 @@ def main():
             "design": "wgmma", "launches": trained["launches"][name],
             "max_abs_err": train_errs[key],
             **train_times["context"][key], "query": train_times["query"][key],
+            "pooled_context": train_times["pooled_context"][key],
+            "pooled_query": train_times["pooled_query"][key],
+            "launches_per_path": {f"{model} train {POOL_MOE_STEPS} steps": tr["launches"][name]
+                                  for model, tr in pool_moe.items()},
             "registers": max(regs_of[p][0] for p in parts),
             "spill_bytes": sum(regs_of[p][1] for p in parts),
         })
+    log(json.dumps({"pool_moe": {
+        name: {"train": {k: v for k, v in tr.items() if k != "model"},
+               "sample": pool_moe_sample[name]}
+        for name, tr in pool_moe.items()}, "flow_npe": flows}))
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ nvcc at first use.
 __version__ = "0.1.0"
 
 from . import distributions, filters, models, tasks  # noqa: F401
+from .baselines import FlowNPE  # noqa: F401
 from .estimator import NPEPFN, DensityRatioEstimator  # noqa: F401
 from .models.checkpoint import load_default  # noqa: F401
 from .restricted_prior import RestrictedPrior  # noqa: F401
@@ -21,7 +22,7 @@ from .tasks import get_task  # noqa: F401
 from .tsnpe import run_tsnpe, simulate_for_sbi  # noqa: F401
 from .unconditional import UnconditionalEstimator  # noqa: F401
 
-__all__ = ["NPEPFN", "CachedPosterior", "DensityRatioEstimator", "PosteriorSupport",
+__all__ = ["NPEPFN", "CachedPosterior", "DensityRatioEstimator", "FlowNPE", "PosteriorSupport",
            "RestrictedPrior", "UnconditionalEstimator", "distributions", "filters", "get_task",
            "load_default", "models", "prereject_with_bounds", "run_tsnpe", "simulate_for_sbi",
            "tasks", "__version__"]

@@ -31,7 +31,6 @@ from ._device import resolve_device
 from .distributions import BoxUniform, Distribution
 from .models import checkpoint as ckpt_mod
 from .models import regressor
-from .models import transformer
 from .models.regressor import TabICAModel
 
 
@@ -495,7 +494,6 @@ class NPEPFN:
             raise ValueError("num_ensembles and num_order_ensembles cannot both exceed 1")
         self.device = model.device if model is not None else resolve_device(device)
         self.model = model if model is not None else ckpt_mod.load_default(self.device)
-        transformer._check_supported(self.model.cfg)
         self.prior = prior
         self.embedding_net = embedding_net
         self.x_shape = tuple(x_shape) if x_shape is not None else None

@@ -34,9 +34,10 @@ class TabICAConfig:
     dtype: str = "bfloat16"
     # Storage dtype of the dense row-attention score tensor.
     scores_dtype: str = "float32"
-    # Row-attention slot pooling (0 = off; the port raises on > 0).
+    # Row-attention bottleneck: each row's cell tokens pool into this many
+    # learned slots, row attention runs per slot (0 = off, per cell token).
     row_pool_slots: int = 0
-    # Mixture-of-experts MLP experts (0 = dense; the port raises on > 0).
+    # Experts of the mixture-of-experts MLP (0 = a dense MLP).
     num_experts: int = 0
     # Experts each token is routed to (top-k gating).
     moe_top_k: int = 2

@@ -60,7 +60,7 @@ class ContextStats:
 class FittedContext:
     """What predictions need: the per-layer K/V cache and normalization."""
 
-    cache: list  # L x (k, v), each [..., T, N, H, hd]
+    cache: list  # L x (k, v), each [..., T, N, H, hd] ([..., K, N, H, hd] pooled)
     stats: ContextStats
     feat_mask: torch.Tensor  # [..., F]
     ctx_mask: torch.Tensor  # [..., N]
@@ -88,6 +88,12 @@ def normalize_x(stats: ContextStats, x):
 
 def normalize_y(stats: ContextStats, y):
     return (y - stats.mu_y[..., None]) / stats.sd_y[..., None]
+
+
+def denormalize_y(stats: ContextStats, y):
+    """The inverse of ``normalize_y``: normalized targets ``[..., Q]`` back
+    to the original space."""
+    return y * stats.sd_y[..., None] + stats.mu_y[..., None]
 
 
 def fit_encode(model: TabICAModel, x_ctx, y_ctx,
@@ -120,8 +126,7 @@ def predict_logits(model: TabICAModel, fitted: FittedContext, x_qry):
 def sample_y(generator: torch.Generator, model: TabICAModel, fitted: FittedContext, logits):
     """One draw per logit row ``[..., Q, B] -> [..., Q]``, in the original
     target space (stats with leading context dims ``[...]``)."""
-    yn = bar.sample(generator, model.borders, logits)
-    return yn * fitted.stats.sd_y[..., None] + fitted.stats.mu_y[..., None]
+    return denormalize_y(fitted.stats, bar.sample(generator, model.borders, logits))
 
 
 def log_prob_y(model: TabICAModel, fitted: FittedContext, logits, y):
@@ -133,8 +138,7 @@ def log_prob_y(model: TabICAModel, fitted: FittedContext, logits, y):
 
 def predict_mean(model: TabICAModel, fitted: FittedContext, logits):
     """E[y] in the original space, ``[..., Q]``."""
-    mn = bar.mean(model.borders, logits)
-    return mn * fitted.stats.sd_y[..., None] + fitted.stats.mu_y[..., None]
+    return denormalize_y(fitted.stats, bar.mean(model.borders, logits))
 
 
 def predict_quantiles(model: TabICAModel, fitted: FittedContext, logits, quantiles):

@@ -39,18 +39,6 @@ def _dt(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_supported(cfg: TabICAConfig):
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "mixture-of-experts MLP (num_experts > 0) is not ported yet "
-            "(ROADMAP Queue 1: training / MoE)"
-        )
-    if cfg.row_pool_slots:
-        raise NotImplementedError(
-            "row_pool_slots > 0 is not ported yet (ROADMAP Queue 1: training / row pooling)"
-        )
-
-
 def layer(blocks: Params, i: int) -> Params:
     """The ``i``-th layer's slice of the stacked block parameters."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
@@ -67,8 +55,13 @@ def init_params(generator: torch.Generator, cfg: TabICAConfig, device=None) -> P
     0.02 / sqrt(2 * 3 * num_layers), embeddings at std 1, zero biases, unit
     layer-norm scales. Block parameters are stacked along a leading layer
     axis; storage is f32. Draws come from ``generator`` (on its own device)
-    and land on ``device`` (default: the generator's)."""
-    _check_supported(cfg)
+    and land on ``device`` (default: the generator's).
+
+    With ``cfg.row_pool_slots`` the blocks carry a ``pool`` subtree (slot
+    embeddings ``[L, K, D]`` at std 1, the pooling and unpooling attentions
+    and two layer norms); with ``cfg.num_experts`` the MLP is expert-major
+    (``router [L, D, E]``, ``w1 [L, E, D, 4D]``, ``w2`` at the residual
+    scale), as in the JAX package."""
     d, h, hd, n = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.num_layers
     hid = d * cfg.mlp_ratio
     device = generator.device if device is None else torch.device(device)
@@ -94,6 +87,31 @@ def init_params(generator: torch.Generator, cfg: TabICAConfig, device=None) -> P
     def ln():
         return {"scale": torch.ones((n, d), dtype=f32, device=device), "bias": zeros(n, d)}
 
+    pool = {}
+    if cfg.row_pool_slots:
+        pool = {"pool": {
+            "slots": nrm((n, cfg.row_pool_slots, d), 1.0),
+            "pool_attn": attn_params(),
+            "ln_slot": ln(),
+            "ln_unpool": ln(),
+            "unpool_attn": attn_params(),
+        }}
+    e = cfg.num_experts
+    if e:
+        mlp = {
+            "router": nrm((n, d, e)),
+            "w1": nrm((n, e, d, hid)),
+            "b1": zeros(n, e, hid),
+            "w2": nrm((n, e, hid, d), out_scale),
+            "b2": zeros(n, e, d),
+        }
+    else:
+        mlp = {
+            "w1": nrm((n, d, hid)),
+            "b1": zeros(n, hid),
+            "w2": nrm((n, hid, d), out_scale),
+            "b2": zeros(n, d),
+        }
     return {
         "embed": {
             "w_feat": nrm((d,), 1.0),
@@ -108,12 +126,8 @@ def init_params(generator: torch.Generator, cfg: TabICAConfig, device=None) -> P
             "ln_row": ln(),
             "row_attn": attn_params(),
             "ln_mlp": ln(),
-            "mlp": {
-                "w1": nrm((n, d, hid)),
-                "b1": zeros(n, hid),
-                "w2": nrm((n, hid, d), out_scale),
-                "b2": zeros(n, d),
-            },
+            "mlp": mlp,
+            **pool,
         },
         "head": {
             "ln": {"scale": torch.ones((d,), dtype=f32, device=device), "bias": zeros(d)},
@@ -227,7 +241,39 @@ def _row_attn(cfg, p, q_in, k, v, ctx_mask):
     return _attn_core(cfg, p, q_in, k, v, ctx_mask[..., None, :])
 
 
+def _moe_mlp(cfg: TabICAConfig, p: Params, x, aux_dims=None):
+    """Top-k-routed mixture-of-experts MLP, every expert computed densely.
+
+    Returns ``(out, aux)``. The router runs in f32; a token takes every
+    expert whose router logit is ``>=`` its k-th largest (a tie takes more
+    than k, as in the JAX package) with softmax gates over those. ``aux`` is
+    the Switch-style load-balance loss E * sum_e (f_e / k) * P_e (1 under
+    uniform routing, E/k under full collapse), with f_e the share of tokens
+    routed to expert e and P_e the mean router probability, both averaged
+    over ``aux_dims`` of the router logits (default: every leading dim, as
+    JAX reduces one dataset). Padded tokens count like any other.
+    """
+    dt = _dt(cfg.dtype)
+    n_exp, k = cfg.num_experts, cfg.moe_top_k
+    glog = x.float() @ p["router"].float()
+    kth = torch.topk(glog, k, dim=-1).values[..., -1:]
+    sel = glog >= kth
+    gates = torch.softmax(glog.masked_fill(~sel, _NEG_INF), dim=-1)
+    h = torch.einsum("...d,edh->...eh", x.to(dt), p["w1"].to(dt)) + p["b1"]
+    h = F.gelu(h.float(), approximate="tanh").to(dt)
+    y = torch.einsum("...eh,ehd->...ed", h.float(), p["w2"].to(dt).float()) + p["b2"]
+    out = torch.einsum("...e,...ed->...d", gates, y)
+    if aux_dims is None:
+        aux_dims = tuple(range(glog.dim() - 1))
+    frac = sel.float().mean(dim=aux_dims)
+    prob = torch.softmax(glog, dim=-1).mean(dim=aux_dims)
+    aux = n_exp * ((frac / k) * prob).sum(dim=-1)
+    return out, aux
+
+
 def _mlp(cfg: TabICAConfig, p: Params, x):
+    if "router" in p:
+        return _moe_mlp(cfg, p, x)[0]
     dt = _dt(cfg.dtype)
     h = (x.to(dt) @ p["w1"].to(dt)) + p["b1"]
     h = F.gelu(h.float(), approximate="tanh").to(dt)
@@ -248,26 +294,84 @@ def _mlp_step(cfg, p, h):
     return _res_add(cfg, h, _mlp(cfg, p["mlp"], _ln(p["ln_mlp"], h)))
 
 
-def _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask):
+# Per-dataset MoE aux: the MLP input is [..., R, T, D] (rows, cell tokens),
+# so the router statistics average over its two token axes and keep the
+# leading dataset dims, as the JAX package's vmap over datasets does.
+_TOKEN_DIMS = (-3, -2)
+
+
+def _mlp_step_aux(cfg, p, h):
+    """The MLP step and its MoE aux loss per leading dim (0 for a dense MLP)."""
+    x = _ln(p["ln_mlp"], h)
+    if "router" in p["mlp"]:
+        delta, aux = _moe_mlp(cfg, p["mlp"], x, _TOKEN_DIMS)
+    else:
+        delta = _mlp(cfg, p["mlp"], x)
+        aux = torch.zeros(h.shape[:-3], dtype=torch.float32, device=h.device)
+    return _res_add(cfg, h, delta), aux
+
+
+def _pool_rows(cfg, p, hn, token_mask):
+    """Attention-pool each row's T cell tokens into K learned slots: hn
+    ``[..., R, T, D]`` (layer-normed) -> ``[..., R, K, D]``. Padded feature
+    tokens are masked out of the keys; the target token is always valid."""
+    pp = p["pool"]
+    slots = pp["slots"].broadcast_to(hn.shape[:-2] + pp["slots"].shape)
+    return _attn(cfg, pp["pool_attn"], slots, hn, token_mask[..., None, :])
+
+
+def _unpool_rows(cfg, p, hn, s):
+    """Tokens ``[..., R, T, D]`` cross-attend over their row's K slots
+    ``[..., R, K, D]``."""
+    pp = p["pool"]
+    return _attn(cfg, pp["unpool_attn"], hn, _ln(pp["ln_unpool"], s), None)
+
+
+def _row_step_pooled(cfg, p, h, token_mask, ctx_mask, kv=None):
+    """Row attention through K slots per row: pool, attend across rows per
+    slot (``[..., K, R, D]``: the kernel's batch is leading dims x K), unpool.
+    Without ``kv`` the rows are context rows and their slot K/V is returned."""
+    hn = _ln(p["ln_row"], h)
+    s = _pool_rows(cfg, p, hn, token_mask).transpose(-3, -2)  # [..., K, R, D]
+    sn = _ln(p["pool"]["ln_slot"], s).to(_dt(cfg.dtype))
+    if kv is None:
+        kv = _project_kv(cfg, p["row_attn"], sn)
+    s = _res_add(cfg, s, _row_attn(cfg, p["row_attn"], sn, *kv, ctx_mask))
+    return _res_add(cfg, h, _unpool_rows(cfg, p, hn, s.transpose(-3, -2))), kv
+
+
+def _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask, skip_mlp=False):
     """Context rows through one block; returns the new state and the
-    row-attention K/V cache."""
+    row-attention K/V cache: ``[..., T, N, H, hd]``, or ``[..., K, N, H, hd]``
+    with row pooling (the decode path is agnostic to the slot axis).
+    ``skip_mlp`` stops before the MLP step."""
     h_ctx = _feat_attn_step(cfg, p, h_ctx, token_mask)
-    hc = h_ctx.transpose(-3, -2)  # [..., T, N, D]
-    hc_n = _ln(p["ln_row"], hc).to(_dt(cfg.dtype))
-    k, v = _project_kv(cfg, p["row_attn"], hc_n)
-    hc = _res_add(cfg, hc, _row_attn(cfg, p["row_attn"], hc_n, k, v, ctx_mask))
-    h_ctx = hc.transpose(-3, -2)
-    return _mlp_step(cfg, p, h_ctx), (k, v)
+    if cfg.row_pool_slots:
+        h_ctx, kv = _row_step_pooled(cfg, p, h_ctx, token_mask, ctx_mask)
+    else:
+        hc = h_ctx.transpose(-3, -2)  # [..., T, N, D]
+        hc_n = _ln(p["ln_row"], hc).to(_dt(cfg.dtype))
+        kv = _project_kv(cfg, p["row_attn"], hc_n)
+        hc = _res_add(cfg, hc, _row_attn(cfg, p["row_attn"], hc_n, *kv, ctx_mask))
+        h_ctx = hc.transpose(-3, -2)
+    if skip_mlp:
+        return h_ctx, kv
+    return _mlp_step(cfg, p, h_ctx), kv
 
 
-def _block_qry(cfg, p, h_qry, kv_cache, token_mask, ctx_mask):
+def _block_qry(cfg, p, h_qry, kv_cache, token_mask, ctx_mask, skip_mlp=False):
     """Query rows through one block against the cached context K/V."""
-    k, v = kv_cache
     h_qry = _feat_attn_step(cfg, p, h_qry, token_mask)
-    hq = h_qry.transpose(-3, -2)  # [..., T, Q, D]
-    hq_n = _ln(p["ln_row"], hq).to(_dt(cfg.dtype))
-    hq = _res_add(cfg, hq, _row_attn(cfg, p["row_attn"], hq_n, k, v, ctx_mask))
-    return _mlp_step(cfg, p, hq.transpose(-3, -2))
+    if cfg.row_pool_slots:
+        h_qry, _ = _row_step_pooled(cfg, p, h_qry, token_mask, ctx_mask, kv_cache)
+    else:
+        hq = h_qry.transpose(-3, -2)  # [..., T, Q, D]
+        hq_n = _ln(p["ln_row"], hq).to(_dt(cfg.dtype))
+        hq = _res_add(cfg, hq, _row_attn(cfg, p["row_attn"], hq_n, *kv_cache, ctx_mask))
+        h_qry = hq.transpose(-3, -2)
+    if skip_mlp:
+        return h_qry
+    return _mlp_step(cfg, p, h_qry)
 
 
 def _block_joint(cfg, blocks, i, h_ctx, h_qry, token_mask, ctx_mask):
@@ -275,6 +379,17 @@ def _block_joint(cfg, blocks, i, h_ctx, h_qry, token_mask, ctx_mask):
     p = layer(blocks, i)
     h_ctx, kv = _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask)
     return h_ctx, _block_qry(cfg, p, h_qry, kv, token_mask, ctx_mask)
+
+
+def _block_joint_aux(cfg, blocks, i, h_ctx, h_qry, token_mask, ctx_mask):
+    """``_block_joint`` that also returns the layer's MoE aux loss, the mean
+    of the context's and the queries' (both route through the MLP)."""
+    p = layer(blocks, i)
+    h_ctx, kv = _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask, skip_mlp=True)
+    h_qry = _block_qry(cfg, p, h_qry, kv, token_mask, ctx_mask, skip_mlp=True)
+    h_ctx, aux_c = _mlp_step_aux(cfg, p, h_ctx)
+    h_qry, aux_q = _mlp_step_aux(cfg, p, h_qry)
+    return h_ctx, h_qry, 0.5 * (aux_c + aux_q)
 
 
 # ---------------------------------------------------------------------------
@@ -332,24 +447,29 @@ def forward(cfg: TabICAConfig, params: Params, x_ctx, y_ctx, x_qry,
 
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of the layer
-    body). ``with_moe_aux`` returns ``(logits, aux)``; aux is the MoE
-    load-balance loss, 0.0 for the dense models the port runs.
+    body). ``with_moe_aux`` returns ``(logits, aux)``: aux is the MoE
+    load-balance loss averaged over layers, one value per leading (dataset)
+    dim, ``[...]``, each what JAX returns for that dataset alone; 0 for a
+    dense MLP.
     """
-    _check_supported(cfg)
     feat_mask, token_mask, ctx_mask = _masks(x_ctx, feat_mask, ctx_mask)
     e = params["embed"]
     h_ctx = _embed_ctx(cfg, e, x_ctx, y_ctx, feat_mask)
     h_qry = _embed_qry(cfg, e, x_qry, feat_mask)
+    block = _block_joint_aux if with_moe_aux else _block_joint
+    aux = 0.0
     for i in range(cfg.num_layers):
         args = (cfg, params["blocks"], i, h_ctx, h_qry, token_mask, ctx_mask)
         if remat:
-            h_ctx, h_qry = checkpoint(_block_joint, *args, use_reentrant=False,
-                                      preserve_rng_state=False)
+            out = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            h_ctx, h_qry = _block_joint(*args)
+            out = block(*args)
+        h_ctx, h_qry = out[:2]
+        if with_moe_aux:
+            aux = aux + out[2]
     logits = _head(cfg, params["head"], h_qry)
     if with_moe_aux:
-        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, aux / cfg.num_layers
     return logits
 
 
@@ -357,8 +477,8 @@ def forward(cfg: TabICAConfig, params: Params, x_ctx, y_ctx, x_qry,
 def encode_context(cfg: TabICAConfig, params: Params, x_ctx, y_ctx,
                    feat_mask=None, ctx_mask=None):
     """Encode the context once; returns the per-layer row-attention K/V cache
-    as a list of ``(k, v)``, each ``[..., T, N, H, hd]``."""
-    _check_supported(cfg)
+    as a list of ``(k, v)``, each ``[..., T, N, H, hd]`` (``[..., K, N, H, hd]``
+    with ``cfg.row_pool_slots`` K)."""
     feat_mask, token_mask, ctx_mask = _masks(x_ctx, feat_mask, ctx_mask)
     h_ctx = _embed_ctx(cfg, params["embed"], x_ctx, y_ctx, feat_mask)
     cache = []
@@ -372,7 +492,6 @@ def encode_context(cfg: TabICAConfig, params: Params, x_ctx, y_ctx,
 def decode_queries(cfg: TabICAConfig, params: Params, cache, x_qry,
                    feat_mask=None, ctx_mask=None):
     """Run query rows ``[..., Q, F]`` against a cached context."""
-    _check_supported(cfg)
     n = cache[0][0].shape[-3]
     dev = x_qry.device
     if ctx_mask is None:

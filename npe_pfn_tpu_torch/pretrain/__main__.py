@@ -69,12 +69,13 @@ def main(argv=None):
                    help="profiler output (default: a directory under TMPDIR)")
     p.add_argument("--scores_dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--row_pool_slots", type=int, default=0,
-                   help="row-attention slot pooling (not ported: > 0 raises)")
+                   help="row-attention slots per row (0: row attention per cell token)")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--num_experts", type=int, default=0,
-                   help="mixture-of-experts MLP (not ported: > 0 raises)")
+                   help="experts of a mixture-of-experts MLP (0: a dense MLP)")
     p.add_argument("--moe_top_k", type=int, default=2)
-    p.add_argument("--moe_aux_weight", type=float, default=0.01)
+    p.add_argument("--moe_aux_weight", type=float, default=0.01,
+                   help="weight of the Switch-style load-balance aux loss")
     p.add_argument("--flash", choices=["auto", "on", "off"], default="auto",
                    help="row attention: 'auto' takes the CUDA kernels on a card and "
                         "the dense path on the CPU")

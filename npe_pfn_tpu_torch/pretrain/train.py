@@ -182,19 +182,27 @@ def apply_updates(params, updates):
 
 def batch_loss(cfg: TabICAConfig, borders, params, batch: prior.TaskBatch,
                remat: bool = True, moe_aux_weight: float = 0.01):
-    """Mean query-row NLL in context-normalized target space, plus the
-    weighted MoE aux loss (0 for the dense models the port runs). Each
-    dataset is normalized by its own masked context statistics; normalized
-    query targets are clipped to ``±cfg.bar_range``."""
+    """Mean query-row NLL in context-normalized target space, plus, for a
+    MoE model (``cfg.num_experts > 0``), ``moe_aux_weight`` times the mean
+    over datasets of each dataset's load-balance aux loss (the JAX package
+    computes the aux per dataset under its vmap; the aux is not linear in
+    the routing statistics, so one mean over every dataset's tokens would
+    differ). Each dataset is normalized by its own masked context
+    statistics; normalized query targets are clipped to ``±cfg.bar_range``."""
     stats = regressor.compute_stats(batch.x_ctx, batch.y_ctx, batch.ctx_mask)
     fm = batch.feat_mask[:, None, :]
     xn_c = regressor.normalize_x(stats, batch.x_ctx) * fm
     yn_c = regressor.normalize_y(stats, batch.y_ctx) * batch.ctx_mask
     xn_q = regressor.normalize_x(stats, batch.x_qry) * fm
     yn_q = regressor.normalize_y(stats, batch.y_qry).clamp(-cfg.bar_range, cfg.bar_range)
-    logits, aux = transformer.forward(cfg, params, xn_c, yn_c, xn_q, batch.feat_mask,
-                                      batch.ctx_mask, remat, with_moe_aux=True)
-    return bar.nll(borders, logits, yn_q).mean() + moe_aux_weight * aux
+    moe = cfg.num_experts > 0
+    out = transformer.forward(cfg, params, xn_c, yn_c, xn_q, batch.feat_mask,
+                              batch.ctx_mask, remat, with_moe_aux=moe)
+    logits, aux = out if moe else (out, None)
+    loss = bar.nll(borders, logits, yn_q).mean()
+    if moe:
+        loss = loss + moe_aux_weight * aux.mean()
+    return loss
 
 
 def train_step(cfg: TabICAConfig, tcfg: TrainConfig, pcfg: prior.PriorConfig, params,

@@ -51,9 +51,22 @@ def upsample_head(params: dict, num_bars_old: int, num_bars_new: int, bar_range:
 
 def load_warmstart(path: str, cfg: TabICAConfig, device=None) -> TabICAModel:
     """Load a checkpoint and adapt it to ``cfg`` (head upsampling only; the
-    trunk shape must match). ``device`` defaults to CUDA."""
+    trunk shape must match). ``device`` defaults to CUDA.
+
+    A row-pooled or MoE target needs a checkpoint with the same subtree
+    (``blocks/pool``, ``blocks/mlp/router``) and the same slot and expert
+    counts; otherwise this raises ``ValueError`` naming what is missing (the
+    JAX package loads such a mismatch and fails later with a ``KeyError``)."""
     device = resolve_device(device)
     src = load_checkpoint(path, device)
+    for field, subtree in (("row_pool_slots", "blocks/pool"),
+                           ("num_experts", "blocks/mlp/router")):
+        have, want = getattr(src.cfg, field), getattr(cfg, field)
+        if have != want:
+            raise ValueError(
+                f"warmstart: the target has {field}={want} but {path} has {field}={have}"
+                + (f": its params lack the {subtree} subtree" if want and not have else "")
+            )
     if (
         src.cfg.d_model != cfg.d_model
         or src.cfg.num_layers != cfg.num_layers

@@ -118,3 +118,27 @@ def torch_uncond(model, seed):
     theta_eval = prior.sample(_gen(dev, seed, GT), (UNCOND["num"],))
     lp = est.log_prob(theta_eval, generator=_gen(dev, seed, METRIC))
     return _uncond_readings(samples.cpu(), lp.cpu(), prior.log_prob(theta_eval).cpu())
+
+
+# A fitted classifier context of the ratio density, committed with the
+# log-probs the CPU plain path reads on it (scripts/export_ratio_context.py):
+# chip_smoke.py phase 20 holds the card's ratio_log_probs on it to them.
+RATIO_CONTEXT = os.path.join(HERE, "torch_ratio_context.npz")
+
+
+def ratio_context(model):
+    """(a ``DensityRatioEstimator`` on ``model`` holding the committed
+    classifier context, the θ to score ``[n, 10]``, the CPU plain path's
+    log-probs ``[n]``), on the model's device."""
+    import torch
+
+    from npe_pfn_tpu_torch import DensityRatioEstimator
+
+    dev = model.device
+    with np.load(RATIO_CONTEXT) as f:
+        data = {k: torch.tensor(f[k].astype(np.float32), device=dev) for k in f.files}
+    est = DensityRatioEstimator(model, context_size=data["ctx_theta"].shape[1])
+    est._ctx_theta, est._ctx_labels = data["ctx_theta"], data["ctx_labels"]
+    est._low, est._high = data["low"], data["high"]
+    est._log_u = float(-torch.log((est._high - est._low).clamp_min(1e-12)).sum())
+    return est, data["theta_eval"], data["lp_cpu"]

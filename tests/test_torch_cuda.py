@@ -443,3 +443,93 @@ def test_kernel_at_sequential_shapes(cuda_device, b, lq, lk, kind):
     tol = 1e-2 * max(1.0, ref.abs().max().item())
     assert (out.float() - ref).abs().max().item() <= tol
     assert _slice_rel_err(out, ref) <= 1e-2
+
+
+# --- Row-pooled and MoE models (slice 7) ---------------------------------------
+# Row pooling sends K slots per row through the row attention: at the
+# pretrain_v7 width with 8 slots the training shapes are B 64 (8 datasets x 8
+# slots) x 768 x 768 and 64 x 128 x 768 with per-dataset mask rows, and a
+# request's encode and decode chunks B 8 x 2048 x 2048. Tolerances as above.
+
+
+@pytest.mark.parametrize("b,lq,lk", [(64, 768, 768), (64, 128, 768)])
+def test_wgmma_design_at_pooled_training_shapes(cuda_device, b, lq, lk):
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    q, k, v, d_out = _qkv_do(b, lq, lk, 2, 128, torch.bfloat16, gen, cuda_device)
+    rows = _mask("batch", 8, lk, gen, cuda_device)
+    _check_wgmma_fwd_bwd(q, k, v, rows.repeat_interleave(b // 8, dim=0), d_out)
+
+
+def test_kernel_at_pooled_inference_shape(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    q, k, v = (torch.randn((8, 2048, 2, 128), generator=gen, device=cuda_device).bfloat16()
+               for _ in range(3))
+    m = _mask("shared", 8, 2048, gen, cuda_device)
+    before = fa.flash_row_attention.wgmma_launches
+    out = fa.flash_row_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    assert fa.flash_row_attention.wgmma_launches == before + 1
+    ref = fa.reference_row_attention(q.float(), k.float(), v.float(), m)
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * max(1.0, ref.abs().max().item())
+    assert _slice_rel_err(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("over", [dict(row_pool_slots=4), dict(num_experts=4, moe_top_k=2)],
+                         ids=["pooled", "moe"])
+def test_pooled_and_moe_kernel_path_match_dense(cuda_device, over):
+    """f32 pooled and MoE models from init_params: the joint forward, encode
+    + decode and batch_loss with its gradients through the kernels against
+    the dense path, with the launches a step takes (the MoE aux makes the
+    last layer's context row attention reach the loss: one more backward)."""
+    from npe_pfn_tpu_torch.pretrain import prior, train
+
+    cfg = TabICAConfig(d_model=64, num_heads=2, num_layers=2, max_features=12, num_bars=32,
+                       dtype="float32", scores_dtype="float32", **over)
+    model = TabICAModel.create(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    x_ctx = torch.randn(300, 12, generator=gen, device=cuda_device)
+    y_ctx = torch.randn(300, generator=gen, device=cuda_device)
+    x_qry = torch.randn(100, 12, generator=gen, device=cuda_device)
+    off = dataclasses.replace(cfg, flash="off")
+    with torch.no_grad():
+        auto = transformer.forward(cfg, model.params, x_ctx, y_ctx, x_qry)
+        dense = transformer.forward(off, model.params, x_ctx, y_ctx, x_qry)
+    torch.testing.assert_close(auto, dense, rtol=1e-4, atol=1e-4)
+    cache = transformer.encode_context(cfg, model.params, x_ctx, y_ctx)
+    slots = over.get("row_pool_slots") or 13
+    assert tuple(cache[0][0].shape) == (slots, 300, 2, 32)
+    torch.testing.assert_close(transformer.decode_queries(cfg, model.params, cache, x_qry), auto,
+                               rtol=1e-4, atol=1e-4)
+    pcfg = prior.PriorConfig(num_features=12, num_ctx=200, num_qry=40, max_active_features=10)
+    batch = prior.sample_tasks(torch.Generator(device=cuda_device).manual_seed(23), 3, pcfg)
+    results = {}
+    for c in (cfg, off):
+        named = {n: p.detach().requires_grad_(True)
+                 for n, p in pytree_io.flatten(model.params).items()}
+        before = (fa.flash_row_attention_lse.launches, fa.flash_row_attention_bwd.launches)
+        loss = train.batch_loss(c, model.borders, pytree_io.unflatten(named), batch)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        torch.cuda.synchronize()
+        used = (fa.flash_row_attention_lse.launches - before[0],
+                fa.flash_row_attention_bwd.launches - before[1])
+        n = cfg.num_layers
+        want = (4 * n, 2 * n - (0 if cfg.num_experts else 1))
+        assert used == (want if c.flash == "auto" else (0, 0))
+        results[c.flash] = (loss, grads)
+    torch.testing.assert_close(results["auto"][0], results["off"][0], rtol=1e-4, atol=1e-5)
+    for g, r in zip(results["auto"][1], results["off"][1]):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-5)
+
+
+def test_flow_npe_fits_on_card(cuda_device):
+    from npe_pfn_tpu_torch import FlowNPE, get_task
+
+    task = get_task("gaussian_linear", dim=2, device=cuda_device)
+    theta, x = task.simulate(torch.Generator(device=cuda_device).manual_seed(0), 1000)
+    flow = FlowNPE(dim_theta=2, dim_x=2, max_epochs=20, patience=5, device=cuda_device)
+    assert 1 <= flow.fit(theta, x) <= 20
+    assert all(w.is_cuda for net in flow.params for w, _ in net)
+    x_o = torch.tensor([0.8, -0.5], device=cuda_device)
+    s = flow.sample(512, x_o, generator=torch.Generator(device=cuda_device).manual_seed(1))
+    lp = flow.log_prob(s, x_o)
+    assert s.shape == (512, 2) and bool(torch.isfinite(s).all() and torch.isfinite(lp).all())

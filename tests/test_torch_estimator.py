@@ -179,20 +179,63 @@ def test_sample_aligns_batch_to_qry_chunk(models):
 
 
 @pytest.mark.parametrize("kwargs", [dict(num_experts=2), dict(row_pool_slots=4)])
-def test_unported_options_raise(models, kwargs):
-    """What the port still lacks raises and names its ROADMAP item: models
-    with MoE or row pooling. (Embedding nets are ported:
-    tests/test_torch_embeddings.py; the ratio-based log_prob:
-    tests/test_torch_ratio.py.)"""
-    _, tm = models
-    cfg_keys = ("num_experts", "row_pool_slots")
-    cfg = dataclasses.replace(tm.cfg, **{k: v for k, v in kwargs.items() if k in cfg_keys})
-    est_kw = {k: v for k, v in kwargs.items() if k not in cfg_keys}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est = NPEPFN(model=dataclasses.replace(tm, cfg=cfg), **est_kw)
-        theta, x = _sims(64, 2, 3)
-        est.append_simulations(t(theta), t(x))
-        est.log_prob(t(theta[:4]), t(x[0]))
+def test_moe_and_pooled_models_serve_as_jax(models, kwargs):
+    """NPEPFN on a MoE and on a row-pooled model: log_prob against the JAX
+    estimator's on the same weights and simulations, and sample's own
+    log-probs against log_prob of its draws."""
+    jm, _ = models
+    jm = JaxModel.create(jax.random.PRNGKey(1), dataclasses.replace(jm.cfg, **kwargs))
+    tm = port_model(jm)
+    theta, x = _sims(64, 2, 3)
+    ref = JaxNPEPFN(model=jm, filter_context_size=64, qry_chunk=16)
+    ref.append_simulations(theta, x)
+    jlp = np.asarray(ref.log_prob(theta[:8], x[0]))
+    est = NPEPFN(model=tm, filter_context_size=64, qry_chunk=16)
+    est.append_simulations(t(theta), t(x))
+    np.testing.assert_allclose(est.log_prob(t(theta[:8]), t(x[0])).numpy(), jlp, **TOL)
+    s, lp = est.sample(32, t(x[0]), return_log_probs=True)
+    assert s.shape == (32, 2) and bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(est.log_prob(s, t(x[0])).numpy(), lp.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kwargs", [dict(num_experts=2), dict(row_pool_slots=4)])
+def test_moe_and_pooled_models_run_the_inference_api(models, kwargs):
+    """The rest of the API on a MoE and on a row-pooled model: the batched
+    and filtered samplers, log_prob_batched, context and order ensembles,
+    CachedPosterior (scoring as log_prob does), the ratio density, the
+    classifier head and run_tsnpe give finite results of the right shapes."""
+    from npe_pfn_tpu_torch import CachedPosterior, get_task, run_tsnpe
+    from npe_pfn_tpu_torch.models import regressor
+
+    jm, _ = models
+    tm = port_model(JaxModel.create(jax.random.PRNGKey(2), dataclasses.replace(jm.cfg, **kwargs)))
+    theta, x = (t(a) for a in _sims(128, 2, 3, seed=8))
+    gen = torch.Generator().manual_seed(0)
+    for est_kw in (dict(), dict(num_ensembles=2), dict(num_order_ensembles=2)):
+        est = NPEPFN(model=tm, filter_context_size=64, qry_chunk=32, seed=0, **est_kw)
+        est.append_simulations(theta, x)
+        s, lp = est.sample(32, x[0], return_log_probs=True)
+        assert s.shape == (32, 2) and bool(torch.isfinite(lp).all())
+    est = NPEPFN(model=tm, filter_context_size=64, qry_chunk=32, seed=0)
+    est.append_simulations(theta, x)
+    sb = est.sample_batched(16, x[:3], generator=gen)
+    sf = est.sample_batched_filtered(16, x[:3], generator=gen)
+    lpb = est.log_prob_batched(sb, x[:3])
+    assert sb.shape == sf.shape == (3, 16, 2) and lpb.shape == (3, 16)
+    assert bool(torch.isfinite(sb).all() and torch.isfinite(sf).all() and torch.isfinite(lpb).all())
+    cached = CachedPosterior(est, x[0], generator=gen)
+    np.testing.assert_allclose(cached.log_prob(theta[:16]).numpy(),
+                               est.log_prob(theta[:16], x[0]).numpy(), rtol=1e-4, atol=1e-4)
+    ratio = est.log_prob(theta[:16], x[0], generator=gen, mode="ratio_based",
+                         num_ratio_samples=128)
+    p = regressor.predict_proba(tm, theta[:64], (theta[:64, 0] > 0).float(), theta[64:80])
+    assert bool(torch.isfinite(ratio).all()) and p.shape == (16, 2)
+    assert bool(((p >= 0) & (p <= 1)).all())
+    task = get_task("two_moons", device="cpu")
+    tsnpe = run_tsnpe(task.simulator, task.prior, torch.zeros(2), num_rounds=2,
+                      num_simulations=128, model=tm, filter_context_size=64, qry_chunk=64,
+                      num_samples_to_estimate_support=64, support_batch_size=256, generator=gen)
+    assert bool(torch.isfinite(tsnpe.sample(16, torch.zeros(2))).all())
 
 
 def test_input_validation(models):

@@ -157,3 +157,27 @@ def test_pickle_drops_the_ratio_state(models):
     assert back._ctx_version == est._ctx_version
     assert back.log_prob(t(theta[:5]), t(x[0]), mode="ratio_based",
                          num_ratio_samples=64).shape == (5,)
+
+
+def test_committed_ratio_context_reads_its_cpu_log_probs():
+    """scripts/torch_ratio_context.npz (chip_smoke.py phase 20 holds the
+    card's reading on it to these) reproduces on the CPU: the shipped
+    checkpoint's ratio_log_probs on its context give its stored log-probs,
+    to 1e-4 in the classifier's probability (CPU GEMMs may sum in another
+    order on another machine), and the floor rows to f32 rounding."""
+    import os
+    import sys
+
+    from npe_pfn_tpu_torch import load_default
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+    import torch_sequential_protocols as seqcal
+
+    assert os.path.getsize(seqcal.RATIO_CONTEXT) < 16_000
+    ratio, theta, lp_cpu = seqcal.ratio_context(load_default("cpu"))
+    lp = ratio.ratio_log_probs(theta)
+    inside = ((theta >= ratio._low) & (theta <= ratio._high)).all(dim=-1)
+    assert 0 < int(inside.sum()) < theta.shape[0]
+    p, p_ref = (torch.sigmoid(a[inside] - ratio._log_u) for a in (lp, lp_cpu))
+    assert (p - p_ref).abs().max().item() <= 1e-4
+    torch.testing.assert_close(lp[~inside], lp_cpu[~inside], rtol=1e-5, atol=0)

@@ -24,18 +24,16 @@ import torch
 
 from npe_pfn_tpu.models import TabICAConfig as JaxConfig
 from npe_pfn_tpu.models import transformer as jt
-from npe_pfn_tpu.pretrain import prior as jprior
 from npe_pfn_tpu.pretrain import train as jtrain
 from npe_pfn_tpu_torch.models import TabICAConfig, checkpoint, transformer
 from npe_pfn_tpu_torch.models.checkpoint import params_from_numpy
 from npe_pfn_tpu_torch.pretrain import __main__ as cli
 from npe_pfn_tpu_torch.pretrain import prior, train
 from npe_pfn_tpu_torch.utils import pytree_io
-from torch_parity import flat_params, t
+from torch_parity import TINY_PRIOR, TINY_TRAIN, check_batch_loss_against_jax, flat_params, t
 
 torch.set_num_threads(2)
-TINY = dict(d_model=32, num_heads=2, num_layers=2, max_features=8, num_bars=32, dtype="float32")
-PCFG = dict(num_features=8, num_ctx=32, num_qry=16, max_active_features=6, hidden=16)
+TINY, PCFG = TINY_TRAIN, TINY_PRIOR
 
 
 def _jax_params(seed=0, **over):
@@ -64,40 +62,37 @@ def test_init_params_has_the_jax_tree_shapes_and_scales():
     assert transformer.param_count(ours) == sum(a.size for a in theirs.values())
 
 
-@pytest.mark.parametrize("over", [dict(num_experts=2), dict(row_pool_slots=4)])
-def test_init_params_raises_for_unported_options(over):
-    cfg = TabICAConfig(**{**TINY, **over})
-    with pytest.raises(NotImplementedError):
-        transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-
-
-def _batch(seed=0, num_datasets=2):
-    """A numpy task batch (from the port's prior) and its JAX TaskBatch."""
-    b = prior.sample_tasks(torch.Generator().manual_seed(seed), num_datasets,
-                           prior.PriorConfig(**PCFG))
-    arrays = [getattr(b, f.name).numpy() for f in dataclasses.fields(b)]
-    return prior.TaskBatch(*(t(a) for a in arrays)), jprior.TaskBatch(*(jnp.asarray(a) for a in arrays))
+@pytest.mark.parametrize("over", [dict(num_experts=4), dict(row_pool_slots=8)])
+def test_init_params_builds_the_jax_moe_and_pool_trees(over):
+    """The MoE MLP (router [L, D, E], expert-major w1/w2, w2 at the residual
+    scale) and the pool subtree (slots [L, K, D] at std 1): JAX's names,
+    shapes and scales, each std within five standard errors."""
+    cfg = TabICAConfig(d_model=64, num_heads=2, num_layers=3, max_features=8, num_bars=64,
+                       **over)
+    ours = pytree_io.flatten(transformer.init_params(torch.Generator().manual_seed(0), cfg, "cpu"))
+    theirs = flat_params(jt.init_params(jax.random.PRNGKey(0), JaxConfig(**dataclasses.asdict(cfg))))
+    assert sorted(ours) == sorted(theirs)
+    new = [n for n in theirs if n.startswith(("blocks/pool/", "blocks/mlp/"))]
+    assert any("router" in n for n in new) == bool(cfg.num_experts)
+    assert any("slots" in n for n in new) == bool(cfg.row_pool_slots)
+    out_scale = 0.02 / np.sqrt(2.0 * 3 * cfg.num_layers)
+    for name in new:
+        ref, got = theirs[name], ours[name]
+        assert tuple(got.shape) == ref.shape and got.dtype == torch.float32, name
+        if np.all(ref == 0) or np.all(ref == 1):
+            np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
+            continue
+        expect = (1.0 if name.endswith("/slots")
+                  else out_scale if name.endswith(("/wo", "mlp/w2")) else 0.02)
+        bound = 5 / np.sqrt(2 * ref.size)
+        assert abs(got.std().item() / expect - 1) < bound, name
+        assert abs(float(np.std(ref)) / expect - 1) < bound, name
 
 
 @pytest.mark.parametrize("flash", ["off", "on"])
 @pytest.mark.parametrize("remat", [False, True])
 def test_batch_loss_and_gradients_match_jax(flash, remat):
-    jcfg, jparams = _jax_params(flash=flash, flash_interpret=flash == "on")
-    cfg = TabICAConfig(**{**TINY, "flash": flash})
-    tbatch, jbatch = _batch()
-    borders = jnp.asarray(train.bar.make_borders(cfg.num_bars, cfg.bar_range).numpy())
-    ref_loss, ref_grads = jax.value_and_grad(
-        lambda p: jtrain.batch_loss(jcfg, borders, p, jbatch, remat))(jparams)
-    params = params_from_numpy(flat_params(jparams), "cpu")
-    leaves = pytree_io.flatten(params)
-    for p in leaves.values():
-        p.requires_grad_(True)
-    loss = train.batch_loss(cfg, t(np.asarray(borders)), params, tbatch, remat)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
-    ref = flat_params(ref_grads)
-    for name, g in zip(leaves, grads):
-        np.testing.assert_allclose(g.numpy(), ref[name], rtol=1e-4, atol=1e-6, err_msg=name)
+    check_batch_loss_against_jax(dict(flash=flash), remat)
 
 
 def _tcfg(**over):

@@ -124,9 +124,18 @@ def test_shipped_checkpoint_f32_at_128_rows():
 
 
 @pytest.mark.parametrize("field", ["num_experts", "row_pool_slots"])
-def test_unported_options_raise(models, field):
-    _, tm = models
-    cfg = dataclasses.replace(tm.cfg, **{field: 2})
-    x_ctx, y_ctx, x_qry = _data(8, 4, tm.cfg.max_features)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.forward(cfg, tm.params, t(x_ctx), t(y_ctx), t(x_qry))
+def test_moe_and_pooled_options_match_jax(models, field):
+    """A MoE (2 experts) and a pooled (2 slots) model of each width: the joint
+    forward and encode + decode against JAX's."""
+    jm, _ = models
+    jm = JaxModel.create(jax.random.PRNGKey(3), dataclasses.replace(jm.cfg, **{field: 2}))
+    tm = port_model(jm)
+    x_ctx, y_ctx, x_qry = _data(24, 6, tm.cfg.max_features, lead=(2,))
+    ref = np.asarray(jt.forward(jm.cfg, jm.params, x_ctx, y_ctx, x_qry))
+    out = tt.forward(tm.cfg, tm.params, t(x_ctx), t(y_ctx), t(x_qry)).detach().numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    jcache = jt.encode_context(jm.cfg, jm.params, x_ctx, y_ctx)
+    cache = tt.encode_context(tm.cfg, tm.params, t(x_ctx), t(y_ctx))
+    np.testing.assert_allclose(tt.decode_queries(tm.cfg, tm.params, cache, t(x_qry)).numpy(),
+                               np.asarray(jt.decode_queries(jm.cfg, jm.params, jcache, x_qry)),
+                               **TOL)

@@ -57,3 +57,65 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run on the GPU machine")
     return torch.device("cuda")
+
+
+# The tiny pretraining configuration of the parity tests (model and prior).
+TINY_TRAIN = dict(d_model=32, num_heads=2, num_layers=2, max_features=8, num_bars=32,
+                  dtype="float32")
+TINY_PRIOR = dict(num_features=8, num_ctx=32, num_qry=16, max_active_features=6, hidden=16)
+
+
+def task_batches(seed=0, num_datasets=2):
+    """A task batch from the port's prior, as the port's TaskBatch and as the
+    JAX package's (the same numbers)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    from npe_pfn_tpu.pretrain import prior as jprior
+    from npe_pfn_tpu_torch.pretrain import prior
+
+    b = prior.sample_tasks(torch.Generator().manual_seed(seed), num_datasets,
+                           prior.PriorConfig(**TINY_PRIOR))
+    arrays = [getattr(b, f.name).numpy() for f in dataclasses.fields(b)]
+    return (prior.TaskBatch(*(t(a) for a in arrays)),
+            jprior.TaskBatch(*(jnp.asarray(a) for a in arrays)))
+
+
+def check_batch_loss_against_jax(over, remat, moe_aux_weight=0.01, seed=0, num_datasets=2):
+    """``train.batch_loss`` and its gradients against
+    ``jax.value_and_grad(npe_pfn_tpu.pretrain.train.batch_loss)`` on the same
+    batch and JAX-initialized weights (TINY_TRAIN with ``over``): loss rtol
+    1e-5, gradients rtol 1e-4 / atol 1e-6. Returns the two losses."""
+    import jax
+    import jax.numpy as jnp
+    from npe_pfn_tpu.models import TabICAConfig as JaxConfig
+    from npe_pfn_tpu.models import transformer as jt
+    from npe_pfn_tpu.pretrain import train as jtrain
+    from npe_pfn_tpu_torch.models import TabICAConfig
+    from npe_pfn_tpu_torch.models.checkpoint import params_from_numpy
+    from npe_pfn_tpu_torch.pretrain import train
+    from npe_pfn_tpu_torch.utils import pytree_io
+
+    fields = {**TINY_TRAIN, **over}
+    if fields.get("flash") == "on":
+        fields["flash_interpret"] = True
+    jcfg = JaxConfig(**fields)
+    jparams = jt.init_params(jax.random.PRNGKey(seed), jcfg)
+    cfg = TabICAConfig(**fields)
+    tbatch, jbatch = task_batches(seed, num_datasets)
+    borders = jnp.asarray(train.bar.make_borders(cfg.num_bars, cfg.bar_range).numpy())
+    ref_loss, ref_grads = jax.value_and_grad(
+        lambda p: jtrain.batch_loss(jcfg, borders, p, jbatch, remat,
+                                    moe_aux_weight=moe_aux_weight))(jparams)
+    params = params_from_numpy(flat_params(jparams), "cpu")
+    leaves = pytree_io.flatten(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    loss = train.batch_loss(cfg, t(np.asarray(borders)), params, tbatch, remat,
+                            moe_aux_weight=moe_aux_weight)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    ref = flat_params(ref_grads)
+    for name, g in zip(leaves, grads):
+        np.testing.assert_allclose(g.numpy(), ref[name], rtol=1e-4, atol=1e-6, err_msg=name)
+    return loss.item(), float(ref_loss)
