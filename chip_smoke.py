@@ -95,14 +95,14 @@ Phases, each printing its own lines:
      encode + decode against the joint forward (1e-3 x max(1, |logit|));
  25. FlowNPE, the trained-flow baseline: on 2-D gaussian_linear (2000
      simulations) against the analytic posterior at tests/test_baselines.py's
-     tolerances; on 10-D (10k simulations, at most 100 epochs) timed only.
+     tolerances; on 10-D (10k simulations, 10 epochs) timed only.
 Phase 20 also scores the committed classifier context of
 scripts/torch_ratio_context.npz and holds the classifier's probabilities to
 the CPU plain path's. Phases 3-4 and 7-8 include the row-pooled model's
 kernel shapes (B 8 x 2048 x 2048 inference, B 64 x 768 x 768 and 64 x 128 x
-768 training). Phases 12-16 and 19-21 time each call (phases 12-16 with no
-warm-up call of their own: a first call's set-up is in their times) and
-assert that it launches only the wgmma inference kernel (no wmma, no training kernel), in exact counts where
+768 training). Phases 12-16 and 19-21 time each call (phases 12-16 after a
+warm-up call of their own) and assert that it launches only the wgmma
+inference kernel (no wmma, no training kernel), in exact counts where
 the loops fix them (every path but the refinement, the unconditional
 estimator and the CLI, whose rejection rounds depend on the draws); phases
 12-16 hold samples to phase 5's posterior check and log-probs to a second
@@ -996,11 +996,16 @@ def run_counted(fn):
     return out, seconds, (fwd.launches, fwd.wgmma_launches, fwd.wmma_launches)
 
 
-def expect_launches(path, counts, rounds=1):
+# The launches each path of phases 12-16 made, as counted, for the kernels line.
+MEASURED_LAUNCHES = {}
+
+
+def expect_launches(path, counts, rounds=1, key=None):
     want = LAUNCHES[path] * rounds
     if counts != (want, want, 0):
         raise AssertionError(f"{path}: (all, wgmma, wmma) launches {counts}, "
                              f"expected ({want}, {want}, 0)")
+    MEASURED_LAUNCHES[key or path] = counts[0]
 
 
 def posterior_check(path, task, xs, draws):
@@ -1064,6 +1069,7 @@ def phase_sample_batched(est, task, x, smi):
     dev = torch.device(DEVICE)
     xs = x[10:10 + BATCHED_OBS]
     gen = lambda: torch.Generator(dev).manual_seed(200)  # noqa: E731
+    est.sample_batched(PER_OBS, xs, generator=gen())  # warm-up
     (theta, lp), seconds, counts = run_counted(
         lambda: est.sample_batched(PER_OBS, xs, generator=gen(), return_log_probs=True))
     _path_line("sample_batched", seconds, BATCHED_OBS * PER_OBS, counts, smi)
@@ -1088,7 +1094,7 @@ def phase_sample_batched(est, task, x, smi):
     log(f"sample_batched with a box prior: {box_seconds:.4f} s, {diag['rounds']} rounds, "
         f"acceptance {diag['acceptance_rate']:.4f}, topped up {diag['topped_up'].tolist()}; "
         f"kernel launches {counts}; {smi}")
-    expect_launches("sample_batched", counts, rounds=diag["rounds"])
+    expect_launches("sample_batched", counts, rounds=diag["rounds"], key="sample_batched_box")
     inside = ((boxed >= low) & (boxed <= high)).all(dim=-1)
     for j in range(BATCHED_OBS):
         n_acc = PER_OBS - int(diag["topped_up"][j])
@@ -1099,8 +1105,7 @@ def phase_sample_batched(est, task, x, smi):
                                  f"accepted rows out of the box, fills inside it or duplicates")
     if diag["rounds"] != 3 or not bool((diag["topped_up"] > 0).all()):
         raise AssertionError(f"the box run did not take 3 rounds and the hatch: {diag}")
-    return dict(seconds=seconds, box_seconds=box_seconds, xs=xs, theta=theta, lp=lp, gen=gen,
-                box_rounds=diag["rounds"])
+    return dict(seconds=seconds, box_seconds=box_seconds, xs=xs, theta=theta, lp=lp, gen=gen)
 
 
 def phase_densities(est, request, batched, smi):
@@ -1108,6 +1113,7 @@ def phase_densities(est, request, batched, smi):
     log_prob_batched of the sample_batched draws against theirs (the same
     random context, from the same generator seed)."""
     x_o, samples, _, _, lps = request
+    est.log_prob(samples, x_o)  # warm-up
     lp, seconds, counts = run_counted(lambda: est.log_prob(samples, x_o))
     log(f"log_prob: {seconds:.4f} s for {samples.shape[0]} rows; kernel launches {counts}; {smi}")
     expect_launches("log_prob", counts)
@@ -1129,6 +1135,7 @@ def phase_filtered(est, task, x, smi):
 
     xs = x[30:30 + FILTERED_OBS]
     gen = lambda: torch.Generator(DEVICE).manual_seed(300)  # noqa: E731
+    est.sample_batched_filtered(PER_OBS, xs, generator=gen())  # warm-up
     (theta, lp), seconds, counts = run_counted(
         lambda: est.sample_batched_filtered(PER_OBS, xs, generator=gen(), return_log_probs=True))
     _path_line("sample_batched_filtered", seconds, FILTERED_OBS * PER_OBS, counts, smi)
@@ -1153,6 +1160,7 @@ def phase_ensembles(est, task, x_o, smi):
         ens = NPEPFN(prior=est.prior, model=est.model, filter_context_size=2048, qry_chunk=2048,
                      seed=0, **kw)
         ens.append_simulations(est._theta_train, est._x_train)
+        ens.sample(SAMPLES, x_o)  # warm-up
         (s, lp), seconds, counts = run_counted(lambda: ens.sample(
             SAMPLES, x_o, generator=torch.Generator(DEVICE).manual_seed(400),
             return_log_probs=True))
@@ -1177,6 +1185,7 @@ def phase_cached(est, task, request, lp_ref, smi):
     cp, pre_s, counts = run_counted(lambda: CachedPosterior(est, x_o))
     log(f"cached_precompute: {pre_s:.4f} s (first call); kernel launches {counts}; {smi}")
     expect_launches("cached_precompute", counts)
+    cp.sample(SAMPLES)  # warm-up
     s, seconds, counts = run_counted(
         lambda: cp.sample(SAMPLES, generator=torch.Generator(DEVICE).manual_seed(500)))
     _path_line("cached_sample", seconds, SAMPLES, counts, smi)
@@ -1846,14 +1855,15 @@ def phase_pool_moe_sample(trained, smi):
             (samples, lps), seconds, counts = run_counted(
                 lambda: est.sample(SAMPLES, x[i + 1], generator=gen, return_log_probs=True))
             expect_counts(f"{name} sample", counts, POOL_MOE_SAMPLE_LAUNCHES)
+            launched = counts[0]
             if samples.shape != (SAMPLES, 10) or not bool(torch.isfinite(samples).all()):
                 raise AssertionError(f"{name}: bad samples {tuple(samples.shape)}")
             requests.append((x[i + 1], samples, seconds, lps))
         times = [r[2] for r in requests]
         median = sorted(times)[1]
         log(f"{name} sample({SAMPLES}): {[round(t, 4) for t in times]} s, median {median:.4f} s "
-            f"= {SAMPLES / median:.1f} samples/s; {POOL_MOE_SAMPLE_LAUNCHES} launches a "
-            f"request, all wgmma; {smi}")
+            f"= {SAMPLES / median:.1f} samples/s; {launched} launches a request, all wgmma; "
+            f"{smi}")
         x_o, samples, _, lps = requests[0]
         # One log_prob reading through the kernels serves phase 6's check (the
         # dense path with the model's bf16 scores) and the density check.
@@ -1892,14 +1902,15 @@ def phase_pool_moe_sample(trained, smi):
         if not ok:
             raise AssertionError(f"{name}: encode + decode disagrees with the joint forward")
         out[name] = dict(median_s=median, samples_per_s=SAMPLES / median,
-                         launches=POOL_MOE_SAMPLE_LAUNCHES, density=density,
+                         launches=launched, density=density,
                          encode_decode_rel=rel)
     return out
 
 
 # Phase 25: FlowNPE. 2-D gaussian_linear, 2000 simulations, max_epochs 150,
 # patience 15, against the analytic posterior at tests/test_baselines.py's
-# tolerances; 10-D, 10k simulations, at most 100 epochs, timed, unbanded.
+# tolerances; 10-D, 10k simulations, 10 epochs (100 until the warm-up calls
+# of phases 12-16 came back; PERF.md §4), timed, unbanded.
 FLOW_MAX_MEAN_SDS, FLOW_STD_RATIO, FLOW_MAX_LP_OFFSET = 3.5, 0.35, 0.5
 
 
@@ -1910,7 +1921,7 @@ def phase_flow_npe(smi):
 
     dev = torch.device(DEVICE)
     out = {}
-    for dim, num, epochs, patience in ((2, 2000, 150, 15), (10, 10_000, 100, 20)):
+    for dim, num, epochs, patience in ((2, 2000, 150, 15), (10, 10_000, 10, 20)):
         task = get_task("gaussian_linear", dim=dim, device=dev)
         theta, x = task.simulate(torch.Generator(dev).manual_seed(0), num)
         flow = FlowNPE(dim_theta=dim, dim_x=dim, max_epochs=epochs, patience=patience, seed=0,
@@ -1999,9 +2010,7 @@ def main():
         **timing["B25"], "B17": timing["B17"], "B100_ensemble": timing["B100_ensemble"],
         "B250_precompute": timing["B250_precompute"],
         **{name: timing[name] for name, *_ in TIME_SHAPES[4:]},
-        "launches_per_path": {"sample": launches // 3, **LAUNCHES,
-                              "sample_batched_box": LAUNCHES["sample_batched"]
-                              * batched["box_rounds"],
+        "launches_per_path": {"sample": launches // 3, **MEASURED_LAUNCHES,
                               **{f"evaluate_task {name}": e["launches"]
                                  for name, e in evaluated.items()},
                               "run_tsnpe": tsnpe["launches"],

@@ -250,8 +250,9 @@ def _moe_mlp(cfg: TabICAConfig, p: Params, x, aux_dims=None):
     the Switch-style load-balance loss E * sum_e (f_e / k) * P_e (1 under
     uniform routing, E/k under full collapse), with f_e the share of tokens
     routed to expert e and P_e the mean router probability, both averaged
-    over ``aux_dims`` of the router logits (default: every leading dim, as
-    JAX reduces one dataset). Padded tokens count like any other.
+    over the token axes ``aux_dims`` (every leading dim is what JAX reduces
+    for one dataset). Padded tokens count like any other. Without
+    ``aux_dims`` the aux is not computed and is None.
     """
     dt = _dt(cfg.dtype)
     n_exp, k = cfg.num_experts, cfg.moe_top_k
@@ -264,7 +265,7 @@ def _moe_mlp(cfg: TabICAConfig, p: Params, x, aux_dims=None):
     y = torch.einsum("...eh,ehd->...ed", h.float(), p["w2"].to(dt).float()) + p["b2"]
     out = torch.einsum("...e,...ed->...d", gates, y)
     if aux_dims is None:
-        aux_dims = tuple(range(glog.dim() - 1))
+        return out, None
     frac = sel.float().mean(dim=aux_dims)
     prob = torch.softmax(glog, dim=-1).mean(dim=aux_dims)
     aux = n_exp * ((frac / k) * prob).sum(dim=-1)
@@ -340,53 +341,40 @@ def _row_step_pooled(cfg, p, h, token_mask, ctx_mask, kv=None):
     return _res_add(cfg, h, _unpool_rows(cfg, p, hn, s.transpose(-3, -2))), kv
 
 
-def _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask, skip_mlp=False):
-    """Context rows through one block; returns the new state and the
+def _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask):
+    """Context rows through one block's attention steps (feature, then row;
+    the MLP step is the caller's). Returns the new state and the
     row-attention K/V cache: ``[..., T, N, H, hd]``, or ``[..., K, N, H, hd]``
-    with row pooling (the decode path is agnostic to the slot axis).
-    ``skip_mlp`` stops before the MLP step."""
+    with row pooling (the decode path is agnostic to the slot axis)."""
     h_ctx = _feat_attn_step(cfg, p, h_ctx, token_mask)
     if cfg.row_pool_slots:
-        h_ctx, kv = _row_step_pooled(cfg, p, h_ctx, token_mask, ctx_mask)
-    else:
-        hc = h_ctx.transpose(-3, -2)  # [..., T, N, D]
-        hc_n = _ln(p["ln_row"], hc).to(_dt(cfg.dtype))
-        kv = _project_kv(cfg, p["row_attn"], hc_n)
-        hc = _res_add(cfg, hc, _row_attn(cfg, p["row_attn"], hc_n, *kv, ctx_mask))
-        h_ctx = hc.transpose(-3, -2)
-    if skip_mlp:
-        return h_ctx, kv
-    return _mlp_step(cfg, p, h_ctx), kv
+        return _row_step_pooled(cfg, p, h_ctx, token_mask, ctx_mask)
+    hc = h_ctx.transpose(-3, -2)  # [..., T, N, D]
+    hc_n = _ln(p["ln_row"], hc).to(_dt(cfg.dtype))
+    kv = _project_kv(cfg, p["row_attn"], hc_n)
+    hc = _res_add(cfg, hc, _row_attn(cfg, p["row_attn"], hc_n, *kv, ctx_mask))
+    return hc.transpose(-3, -2), kv
 
 
-def _block_qry(cfg, p, h_qry, kv_cache, token_mask, ctx_mask, skip_mlp=False):
-    """Query rows through one block against the cached context K/V."""
+def _block_qry(cfg, p, h_qry, kv_cache, token_mask, ctx_mask):
+    """Query rows through one block's attention steps against the cached
+    context K/V (the MLP step is the caller's)."""
     h_qry = _feat_attn_step(cfg, p, h_qry, token_mask)
     if cfg.row_pool_slots:
-        h_qry, _ = _row_step_pooled(cfg, p, h_qry, token_mask, ctx_mask, kv_cache)
-    else:
-        hq = h_qry.transpose(-3, -2)  # [..., T, Q, D]
-        hq_n = _ln(p["ln_row"], hq).to(_dt(cfg.dtype))
-        hq = _res_add(cfg, hq, _row_attn(cfg, p["row_attn"], hq_n, *kv_cache, ctx_mask))
-        h_qry = hq.transpose(-3, -2)
-    if skip_mlp:
-        return h_qry
-    return _mlp_step(cfg, p, h_qry)
+        return _row_step_pooled(cfg, p, h_qry, token_mask, ctx_mask, kv_cache)[0]
+    hq = h_qry.transpose(-3, -2)  # [..., T, Q, D]
+    hq_n = _ln(p["ln_row"], hq).to(_dt(cfg.dtype))
+    hq = _res_add(cfg, hq, _row_attn(cfg, p["row_attn"], hq_n, *kv_cache, ctx_mask))
+    return hq.transpose(-3, -2)
 
 
 def _block_joint(cfg, blocks, i, h_ctx, h_qry, token_mask, ctx_mask):
-    """Layer ``i`` on context and query rows (the unit ``remat`` recomputes)."""
+    """Layer ``i`` on context and query rows (the unit ``remat`` recomputes).
+    Returns the new states and the layer's MoE aux loss, the mean of the
+    context's and the queries' (both route through the MLP; 0 when dense)."""
     p = layer(blocks, i)
     h_ctx, kv = _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask)
-    return h_ctx, _block_qry(cfg, p, h_qry, kv, token_mask, ctx_mask)
-
-
-def _block_joint_aux(cfg, blocks, i, h_ctx, h_qry, token_mask, ctx_mask):
-    """``_block_joint`` that also returns the layer's MoE aux loss, the mean
-    of the context's and the queries' (both route through the MLP)."""
-    p = layer(blocks, i)
-    h_ctx, kv = _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask, skip_mlp=True)
-    h_qry = _block_qry(cfg, p, h_qry, kv, token_mask, ctx_mask, skip_mlp=True)
+    h_qry = _block_qry(cfg, p, h_qry, kv, token_mask, ctx_mask)
     h_ctx, aux_c = _mlp_step_aux(cfg, p, h_ctx)
     h_qry, aux_q = _mlp_step_aux(cfg, p, h_qry)
     return h_ctx, h_qry, 0.5 * (aux_c + aux_q)
@@ -456,17 +444,15 @@ def forward(cfg: TabICAConfig, params: Params, x_ctx, y_ctx, x_qry,
     e = params["embed"]
     h_ctx = _embed_ctx(cfg, e, x_ctx, y_ctx, feat_mask)
     h_qry = _embed_qry(cfg, e, x_qry, feat_mask)
-    block = _block_joint_aux if with_moe_aux else _block_joint
     aux = 0.0
     for i in range(cfg.num_layers):
         args = (cfg, params["blocks"], i, h_ctx, h_qry, token_mask, ctx_mask)
         if remat:
-            out = checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+            h_ctx, h_qry, a = checkpoint(_block_joint, *args, use_reentrant=False,
+                                         preserve_rng_state=False)
         else:
-            out = block(*args)
-        h_ctx, h_qry = out[:2]
-        if with_moe_aux:
-            aux = aux + out[2]
+            h_ctx, h_qry, a = _block_joint(*args)
+        aux = aux + a
     logits = _head(cfg, params["head"], h_qry)
     if with_moe_aux:
         return logits, aux / cfg.num_layers
@@ -483,7 +469,9 @@ def encode_context(cfg: TabICAConfig, params: Params, x_ctx, y_ctx,
     h_ctx = _embed_ctx(cfg, params["embed"], x_ctx, y_ctx, feat_mask)
     cache = []
     for i in range(cfg.num_layers):
-        h_ctx, kv = _block_ctx(cfg, layer(params["blocks"], i), h_ctx, token_mask, ctx_mask)
+        p = layer(params["blocks"], i)
+        h_ctx, kv = _block_ctx(cfg, p, h_ctx, token_mask, ctx_mask)
+        h_ctx = _mlp_step(cfg, p, h_ctx)
         cache.append(kv)
     return cache
 
@@ -502,6 +490,7 @@ def decode_queries(cfg: TabICAConfig, params: Params, cache, x_qry,
     token_mask = _token_mask(feat_mask)
     h_qry = _embed_qry(cfg, params["embed"], x_qry, feat_mask)
     for i in range(cfg.num_layers):
-        h_qry = _block_qry(cfg, layer(params["blocks"], i), h_qry, cache[i], token_mask,
-                           ctx_mask.bool())
+        p = layer(params["blocks"], i)
+        h_qry = _block_qry(cfg, p, h_qry, cache[i], token_mask, ctx_mask.bool())
+        h_qry = _mlp_step(cfg, p, h_qry)
     return _head(cfg, params["head"], h_qry)

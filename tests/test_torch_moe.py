@@ -49,7 +49,8 @@ def _experts(rng, router, d=32, e=4, hid=128, scale=0.02):
 def _both(p_np, x_np, cfg=None):
     cfg = cfg or TabICAConfig(**CFG)
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
-    out, aux = tt._moe_mlp(cfg, {k: t(v) for k, v in p_np.items()}, t(x_np))
+    dims = tuple(range(x_np.ndim - 1))  # every leading dim, as JAX reduces
+    out, aux = tt._moe_mlp(cfg, {k: t(v) for k, v in p_np.items()}, t(x_np), dims)
     jout, jaux = jt._moe_mlp(jcfg, {k: jnp.asarray(v) for k, v in p_np.items()}, jnp.asarray(x_np))
     return (out.numpy(), aux.item()), (np.asarray(jout), float(jaux))
 
