@@ -95,7 +95,16 @@ Phases, each printing its own lines:
      encode + decode against the joint forward (1e-3 x max(1, |logit|));
  25. FlowNPE, the trained-flow baseline: on 2-D gaussian_linear (2000
      simulations) against the analytic posterior at tests/test_baselines.py's
-     tolerances; on 10-D (10k simulations, 10 epochs) timed only.
+     tolerances; on 10-D (10k simulations, 10 epochs) timed only;
+ 26. npe_pfn_tpu_torch.parallel in one NCCL group of one rank (the card
+     holds one; NCCL takes a card per rank): sharded_autoregressive_sample
+     of phase 5's first request (bit for bit, 480 launches); context
+     sharding (gathered and ring), tensor, pipeline and expert parallelism
+     on a 2048-row context against the single-device logits; 2 dp steps of
+     the pretrain_v7 recipe against train_step (loss and gnorm equal);
+     exact launches per kernel and design; the inference and lse kernels at
+     H 1 (a 2-way tensor-parallel rank's shape) against their plain
+     versions; the ring's lse merge against one kernel call.
 Phase 20 also scores the committed classifier context of
 scripts/torch_ratio_context.npz and holds the classifier's probabilities to
 the CPU plain path's. Phases 3-4 and 7-8 include the row-pooled model's
@@ -975,9 +984,9 @@ MAX_MEDIAN_DENSITY_DIFF = 0.025
 MAX_P99_DENSITY_DIFF = 0.1
 
 
-def run_counted(fn):
-    """``fn()`` with every kernel counter set to 0 just before it and read
-    just after: (result, seconds, inference kernel (all, wgmma, wmma))."""
+def count_kernels(fn):
+    """``fn()`` with every kernel counter at 0 just before it and read just
+    after: (result, seconds, {kernel: (all, wgmma, wmma)})."""
     import torch
 
     from npe_pfn_tpu_torch.ops import flash_attention as fa
@@ -989,11 +998,17 @@ def run_counted(fn):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    if fa.flash_row_attention_lse.launches or fa.flash_row_attention_bwd.launches:
+    return out, time.perf_counter() - t0, {
+        c.__name__: (c.launches, c.wgmma_launches, c.wmma_launches) for c in counters}
+
+
+def run_counted(fn):
+    """``fn()`` with every kernel counter set to 0 just before it and read
+    just after: (result, seconds, inference kernel (all, wgmma, wmma))."""
+    out, seconds, counts = count_kernels(fn)
+    if counts["flash_row_attention_lse"][0] or counts["flash_row_attention_bwd"][0]:
         raise AssertionError("an inference path launched a training kernel")
-    fwd = fa.flash_row_attention
-    return out, seconds, (fwd.launches, fwd.wgmma_launches, fwd.wmma_launches)
+    return out, seconds, counts["flash_row_attention"]
 
 
 # The launches each path of phases 12-16 made, as counted, for the kernels line.
@@ -1958,6 +1973,240 @@ def phase_flow_npe(smi):
     return out
 
 
+# Phase 26: npe_pfn_tpu_torch.parallel at world size 1 on the nccl backend.
+# NCCL takes one card per rank and the machine has one, so the all_reduce,
+# all_gather and broadcast run through NCCL while a ring or a pipeline of one
+# rank sends nothing. Every path runs once at full width against its
+# single-device counterpart on the same inputs: the query-sharded request
+# must equal phase 5's first request bit for bit, the dp steps' loss and
+# gnorm train_step's; logits agree within phase 24's 1e-3 x max(1, |logit|).
+# Launches per path, (inference, lse, backward), all wgmma: the request 10 x
+# 8 x (1 + 5); encode + decode of a 2048-row context and 2048 queries 8 + 8
+# (the pipeline's decode in 2 microbatches: 8 + 16; the ring's hops call
+# the lse kernel); two dp steps of the pretrain_v7 recipe 2 x (32, 15).
+MAX_PARALLEL_REL = 1e-3
+PARALLEL_LAUNCHES = {"sharded_sample_10240": (480, 0, 0), "sp_gather": (16, 0, 0),
+                     "sp_ring": (0, 16, 0), "tp": (16, 0, 0), "pp_2_microbatches": (24, 0, 0),
+                     "ep": (16, 0, 0), "dp_2_steps": (0, 64, 30)}
+# The ring's merge: the lse kernel over 2048 keys in 4 slices of 512 (one
+# fully masked), merged in f32, against one call over all keys. Output:
+# phase 3's bf16 bound (each slice's output is rounded to bf16 before the
+# merge); lse: 1e-4 x max(1, |lse|) (a few f32 roundings of the merge).
+RING_SLICES, MAX_RING_LSE_REL = 4, 1e-4
+
+
+def check_parallel_launches(path, counts):
+    names = ("flash_row_attention", "flash_row_attention_lse", "flash_row_attention_bwd")
+    want = {n: (w, w, 0) for n, w in zip(names, PARALLEL_LAUNCHES[path])}
+    if counts != want:
+        raise AssertionError(f"{path}: launches (all, wgmma, wmma) {counts}, expected {want}")
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max().item()
+
+
+NARROW_SHAPES = (("inference B20 2048x2048", 20, 2048, 2048), ("lse B264 768x768", 264, 768, 768))
+
+
+def _narrow_kernels(dev, shapes=NARROW_SHAPES):
+    """The inference and lse kernels at H = 1, a 2-way tensor-parallel
+    rank's shape of the shipped checkpoint (bf16, hd 128), against their
+    plain versions at phases 3 and 7's tolerances."""
+    import torch
+
+    from npe_pfn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(dev).manual_seed(26)
+    errs = {}
+    for name, b, lq, lk in shapes:
+        q, k, v = (torch.randn((b, n, 1, 128), generator=gen, device=dev).bfloat16()
+                   for n in (lq, lk, lk))
+        m = torch.arange(lk, device=dev)[None] < torch.randint(lk // 2, lk + 1, (b, 1),
+                                                               generator=gen, device=dev)
+        ref, ref_lse = fa.reference_row_attention_lse(q, k, v, m)
+        if name.startswith("lse"):
+            out, lse = fa.flash_row_attention_lse(q, k, v, m)
+            lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item()
+            if lse_err > 1e-5:
+                raise AssertionError(f"H 1 {name}: lse rel err {lse_err:.3e} > 1e-5")
+        else:
+            out = fa.flash_row_attention(q, k, v, m)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= TOL_BF16 * max(1.0, ref.float().abs().max().item()):
+            raise AssertionError(f"H 1 {name}: max |kernel - plain| {err:.3e}")
+        errs[name] = err
+    return errs
+
+
+def _ring_merge(dev, b=25, lq=2048, lk=2048):
+    import torch
+
+    from npe_pfn_tpu_torch.ops import flash_attention as fa
+    from npe_pfn_tpu_torch.parallel.context_sharded import merge_partials
+
+    gen = torch.Generator(dev).manual_seed(27)
+    q, k, v = (torch.randn((b, n, 2, 128), generator=gen, device=dev).bfloat16()
+               for n in (lq, lk, lk))
+    m = torch.rand(lk, generator=gen, device=dev) > 0.2
+    m[lk // RING_SLICES:2 * lk // RING_SLICES] = False
+    out, lse = fa.flash_row_attention_lse(q, k, v, m)
+    o_acc = lse_acc = None
+    for sl in torch.arange(lk, device=dev).chunk(RING_SLICES):
+        o_acc, lse_acc = merge_partials(o_acc, lse_acc, *fa.flash_row_attention_lse(
+            q, k[:, sl], v[:, sl], m[sl]))
+    out_err = (o_acc - out.float()).abs().max().item()
+    lse_rel = ((lse_acc - lse).abs() / lse.abs().clamp_min(1.0)).max().item()
+    ok = (bool(torch.isfinite(o_acc).all()) and out_err <= TOL_BF16 * max(
+        1.0, out.float().abs().max().item()) and lse_rel <= MAX_RING_LSE_REL)
+    log(f"parallel: ring merge of the lse kernel over {lk} keys in {RING_SLICES} slices (one "
+        f"fully masked) vs one call, B {b}: max |out diff| {out_err:.3e} (bound {TOL_BF16} x "
+        f"max(1, |out|)), lse rel {lse_rel:.3e} (bound {MAX_RING_LSE_REL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the ring's merge disagrees with one kernel call")
+    return dict(out_err=out_err, lse_rel=lse_rel)
+
+
+def phase_parallel(est, request, smi, recipe=None):
+    """npe_pfn_tpu_torch.parallel on one card: one NCCL group of one rank,
+    destroyed at the end of the phase."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from npe_pfn_tpu_torch.parallel import init_distributed
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(0, 1, "file://" + os.path.join(tmp, "rendezvous"),
+                         None if dev.type == "cuda" else dev)
+        try:
+            out = _parallel_paths(est, request, smi, recipe or train_recipe, dev)
+        finally:
+            dist.destroy_process_group()
+    out["narrow_kernels_max_abs_err"] = _narrow_kernels(dev)
+    out["ring_merge"] = _ring_merge(dev)
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(f"phase 26 in {out['phase_seconds']:.1f} s")
+    return out
+
+
+def _parallel_paths(est, request, smi, recipe, dev):
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from npe_pfn_tpu_torch.models import regressor
+    from npe_pfn_tpu_torch.models.regressor import TabICAModel
+    from npe_pfn_tpu_torch.parallel import (ep_place, get_mesh, make_sharded_train_step,
+                                            pp_decode, pp_fit_encode,
+                                            sharded_autoregressive_sample, tp_place)
+    from npe_pfn_tpu_torch.parallel.context_sharded import sp_decode, sp_fit_encode
+    from npe_pfn_tpu_torch.pretrain import train
+
+    model = est.model
+    seconds, launches, rel = {}, {}, {}
+
+    def run(path, fn):
+        result, seconds[path], counts = count_kernels(fn)
+        check_parallel_launches(path, counts)
+        launches[path] = counts
+        return result
+
+    # Phase 5's first request, query rows sharded over a mesh of one rank.
+    x_o, samples_ref, _, _, lps_ref = request
+    mesh = get_mesh(1, device=dev)
+    gen = torch.Generator(dev).manual_seed(100)
+    ctx = est.get_context(x_o, gen)
+    x_qry = x_o.broadcast_to((samples_ref.shape[0], x_o.shape[-1]))
+    samples, lps = run("sharded_sample_10240", lambda: sharded_autoregressive_sample(
+        mesh, model, *ctx, x_qry, gen, qry_chunk=est.qry_chunk,
+        target_transform=est.target_transform))
+    same = torch.equal(samples, samples_ref) and torch.equal(lps, lps_ref)
+    log(f"parallel: sharded_autoregressive_sample({samples.shape[0]}) on 1 rank "
+        f"{seconds['sharded_sample_10240']:.4f} s; equal to phase 5's first request bit for "
+        f"bit: {same}; launches {launches['sharded_sample_10240']}")
+    if not same:
+        raise AssertionError("the sharded request at one rank differs from phase 5's")
+
+    # One regression step of that request at full width: the context's x and
+    # θ_1..9 as 19 features, θ_0 the target; 2048 queries.
+    theta_ctx, x_ctx, ctx_mask = ctx
+    feats = torch.cat([x_ctx, theta_ctx[:, 1:]], dim=-1)
+    y = theta_ctx[:, 0]
+    rows = samples_ref[:2048]
+    xq = torch.cat([x_o.expand(rows.shape[0], -1), rows[:, 1:]], dim=-1)
+
+    def logits_of(m):
+        return regressor.predict_logits(m, regressor.fit_encode(m, feats, y, ctx_mask=ctx_mask),
+                                        xq)
+
+    ref = logits_of(model) * model.temperature
+    meshes = {a: get_mesh(1, axis=a, device=dev) for a in ("tp", "pp", "ep")}
+    mesh_sp = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "sp"))
+    for mode in ("gather", "ring"):
+        got = run(f"sp_{mode}", lambda: sp_decode(mesh_sp, model, sp_fit_encode(
+            mesh_sp, model, feats, y, ctx_mask=ctx_mask, row_attn=mode), xq, row_attn=mode))
+        rel[f"sp_{mode}"] = _rel(got, ref)
+    got = run("tp", lambda: logits_of(tp_place(meshes["tp"], model)))
+    rel["tp"] = _rel(got * model.temperature, ref)
+    got = run("pp_2_microbatches", lambda: pp_decode(meshes["pp"], model, pp_fit_encode(
+        meshes["pp"], model, feats, y, ctx_mask=ctx_mask), xq, num_microbatches=2))
+    rel["pp_2_microbatches"] = _rel(got, ref)
+
+    cfg, tcfg, pcfg = recipe()
+    moe = TabICAModel.create(torch.Generator(dev).manual_seed(7), dataclasses.replace(
+        cfg, num_experts=4, moe_top_k=2))
+    ref_moe = logits_of(moe)
+    rel["ep"] = _rel(run("ep", lambda: logits_of(ep_place(meshes["ep"], moe))), ref_moe)
+    del moe
+    log(f"parallel: logits of a 2048-row context and 2048 queries against the single-device "
+        f"path, max |diff| / max(1, |logit|): "
+        + ", ".join(f"{k} {v:.3e} ({seconds[k]:.4f} s)" for k, v in rel.items())
+        + f" (bound {MAX_PARALLEL_REL})")
+    bad = {k: v for k, v in rel.items() if not v <= MAX_PARALLEL_REL}
+    if bad:
+        raise AssertionError(f"parallel paths disagree with the single-device logits: {bad}")
+
+    # Two data-parallel steps of the pretrain_v7 recipe against train_step.
+    base = TabICAModel.create(torch.Generator(dev).manual_seed(11), cfg)
+    opt_state = train.make_optimizer(tcfg).init(base.params)
+    step, place = make_sharded_train_step(mesh, cfg, tcfg, pcfg)
+    dp_state = place(base.params, opt_state)
+
+    def gen_of(i):
+        return torch.Generator(dev).manual_seed(train.derive_seed(tcfg.seed, i))
+
+    def dp_steps():
+        nonlocal dp_state
+        reads = []
+        for i in range(2):
+            params, state, loss, gnorm = step(*dp_state, base.borders, gen_of(i))
+            dp_state = (params, state)
+            reads.append((loss, gnorm))
+        return reads
+
+    dp_reads = run("dp_2_steps", dp_steps)
+    one, single = (base.params, opt_state), []
+    for i in range(2):
+        params, state, loss, gnorm = train.train_step(cfg, tcfg, pcfg, *one, base.borders,
+                                                      gen_of(i))
+        one = (params, state)
+        single.append((loss, gnorm))
+    dp_reads = [(a.item(), b.item()) for a, b in dp_reads]
+    single = [(a.item(), b.item()) for a, b in single]
+    log(f"parallel: 2 dp steps of the pretrain_v7 recipe on 1 rank in "
+        f"{seconds['dp_2_steps']:.4f} s; (loss, gnorm) {dp_reads}, train_step {single}; "
+        f"launches {launches['dp_2_steps']}; {smi}")
+    if dp_reads != single:
+        raise AssertionError("the dp steps' loss and gnorm differ from train_step's")
+    return dict(seconds=seconds, rel=rel, dp=dp_reads,
+                launches={k: {n: c[0] for n, c in v.items()} for k, v in launches.items()})
+
+
 def main():
     import torch
 
@@ -1998,6 +2247,8 @@ def main():
     pool_moe_sample = phase_pool_moe_sample(pool_moe, smi)
     flows = phase_flow_npe(smi)
     log(f"phases 23-25 in {time.perf_counter() - t_new:.1f} s")
+    parallel = phase_parallel(est, request, smi)
+    par = parallel["launches"]
     csrc = "npe_pfn_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_row_attention",
@@ -2021,7 +2272,9 @@ def main():
                               **{name: h["launches"] for name, h in heads.items()},
                               "ratio_context": refined["ratio_context"]["launches"],
                               **{f"sample_10240 {name}": r["launches"]
-                                 for name, r in pool_moe_sample.items()}},
+                                 for name, r in pool_moe_sample.items()},
+                              **{f"parallel {path}": c["flash_row_attention"]
+                                 for path, c in par.items() if c["flash_row_attention"]}},
         "sequential_shapes": seq_rows,
         "registers": regs_of["fwd"][0], "spill_bytes": regs_of["fwd"][1],
     }]
@@ -2029,7 +2282,7 @@ def main():
     # shape (B 264, 768 x 768), the query shape's under "query".
     for name, key, source, replaces, parts in (
         ("flash_row_attention_lse", "lse", "flash_row_attention.cu",
-         "npe_pfn_tpu/ops/flash_attention.py:257", ("fwd_lse",)),
+         "npe_pfn_tpu/ops/flash_attention.py:258", ("fwd_lse",)),
         ("flash_row_attention_bwd", "bwd", "flash_row_attention_bwd.cu",
          "npe_pfn_tpu/ops/flash_attention.py:284", ("dkdv", "dq")),
     ):
@@ -2040,15 +2293,17 @@ def main():
             **train_times["context"][key], "query": train_times["query"][key],
             "pooled_context": train_times["pooled_context"][key],
             "pooled_query": train_times["pooled_query"][key],
-            "launches_per_path": {f"{model} train {POOL_MOE_STEPS} steps": tr["launches"][name]
-                                  for model, tr in pool_moe.items()},
+            "launches_per_path": {**{f"{model} train {POOL_MOE_STEPS} steps": tr["launches"][name]
+                                     for model, tr in pool_moe.items()},
+                                  **{f"parallel {path}": c[name] for path, c in par.items()
+                                     if c[name]}},
             "registers": max(regs_of[p][0] for p in parts),
             "spill_bytes": sum(regs_of[p][1] for p in parts),
         })
     log(json.dumps({"pool_moe": {
         name: {"train": {k: v for k, v in tr.items() if k != "model"},
                "sample": pool_moe_sample[name]}
-        for name, tr in pool_moe.items()}, "flow_npe": flows}))
+        for name, tr in pool_moe.items()}, "flow_npe": flows, "parallel": parallel}))
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

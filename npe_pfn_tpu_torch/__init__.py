@@ -11,10 +11,11 @@ nvcc at first use.
 
 __version__ = "0.1.0"
 
-from . import distributions, filters, models, tasks  # noqa: F401
+from . import distributions, embeddings, filters, models, tasks  # noqa: F401
 from .baselines import FlowNPE  # noqa: F401
 from .estimator import NPEPFN, DensityRatioEstimator  # noqa: F401
 from .models.checkpoint import load_default  # noqa: F401
+from .rejection import accept_reject_sample  # noqa: F401
 from .restricted_prior import RestrictedPrior  # noqa: F401
 from .serving import CachedPosterior  # noqa: F401
 from .support import PosteriorSupport, prereject_with_bounds  # noqa: F401
@@ -23,6 +24,6 @@ from .tsnpe import run_tsnpe, simulate_for_sbi  # noqa: F401
 from .unconditional import UnconditionalEstimator  # noqa: F401
 
 __all__ = ["NPEPFN", "CachedPosterior", "DensityRatioEstimator", "FlowNPE", "PosteriorSupport",
-           "RestrictedPrior", "UnconditionalEstimator", "distributions", "filters", "get_task",
-           "load_default", "models", "prereject_with_bounds", "run_tsnpe", "simulate_for_sbi",
-           "tasks", "__version__"]
+           "RestrictedPrior", "UnconditionalEstimator", "accept_reject_sample", "distributions",
+           "embeddings", "filters", "get_task", "load_default", "models", "prereject_with_bounds",
+           "run_tsnpe", "simulate_for_sbi", "tasks", "__version__"]

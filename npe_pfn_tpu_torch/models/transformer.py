@@ -39,9 +39,37 @@ def _dt(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+class SplitParams(dict):
+    """A parameter dict whose product a group of ranks shares.
+
+    Tensor parallelism gives each rank some of an attention's heads or of a
+    dense MLP's hidden units, expert parallelism some of a MoE MLP's experts
+    (``npe_pfn_tpu_torch.parallel``). A rank's product over its share is a
+    partial sum: ``reduce`` sums it over the group, in place, where GSPMD
+    inserts the psum in the JAX package (after ``wo``, the dense ``w2`` and
+    the expert combine), and the residual bias is added once after it.
+    ``expert0`` is the global index of the rank's first expert. The leaves
+    are plain tensors, so ``pytree_io`` and checkpoints see a plain tree.
+    """
+
+    def __init__(self, items, reduce, expert0: int = 0):
+        super().__init__(items)
+        self.reduce = reduce
+        self.expert0 = expert0
+
+
+def _reduced(p: Params, x):
+    """``x`` summed over the ranks that share ``p``'s product (``x`` itself
+    for a plain dict)."""
+    return p.reduce(x) if isinstance(p, SplitParams) else x
+
+
 def layer(blocks: Params, i: int) -> Params:
     """The ``i``-th layer's slice of the stacked block parameters."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
+    out = {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
+    if isinstance(blocks, SplitParams):
+        return SplitParams(out, blocks.reduce, blocks.expert0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -162,11 +190,12 @@ def _proj(x, w, dt):
     return (x.to(dt) @ w.reshape(d, h * hd).to(dt)).view(*x.shape[:-1], h, hd)
 
 
-def _out_proj(out, w, b):
-    """``einsum('...qhd,hdm->...qm', preferred f32) + b``: f32 result."""
-    h, hd, m = w.shape
-    wf = w.to(out.dtype).float().reshape(h * hd, m)
-    return out.reshape(*out.shape[:-2], h * hd).float() @ wf + b
+def _out_proj(p: Params, out):
+    """``einsum('...qhd,hdm->...qm', preferred f32)`` with ``p["wo"]``, summed
+    over the ranks that share the heads, ``+ p["bo"]``: f32 result."""
+    h, hd, m = p["wo"].shape
+    wf = p["wo"].to(out.dtype).float().reshape(h * hd, m)
+    return _reduced(p, out.reshape(*out.shape[:-2], h * hd).float() @ wf) + p["bo"]
 
 
 def _project_kv(cfg: TabICAConfig, p: Params, kv_in):
@@ -190,7 +219,7 @@ def _attn_core(cfg: TabICAConfig, p: Params, q_in, k, v, kv_mask: Optional[torch
         logits = logits.masked_fill(~kv_mask[..., None, None, :].bool(), _NEG_INF)
     attn = torch.softmax(logits.float(), dim=-1).to(dt)
     out = torch.einsum("...hqk,...khd->...qhd", attn, v)
-    return _out_proj(out, p["wo"], p["bo"])
+    return _out_proj(p, out)
 
 
 def _attn(cfg, p, q_in, kv_in, kv_mask):
@@ -231,7 +260,7 @@ def _attn_core_flash(cfg: TabICAConfig, p: Params, q_in, k, v, kv_mask):
                                              or vf.requires_grad)
     attn = flash_row_attention_trainable if trainable else flash_row_attention
     out = attn(qf, kf, vf, mf).reshape(lead + (lq, h, hd))
-    return _out_proj(out, p["wo"], p["bo"])
+    return _out_proj(p, out)
 
 
 def _row_attn(cfg, p, q_in, k, v, ctx_mask):
@@ -260,10 +289,12 @@ def _moe_mlp(cfg: TabICAConfig, p: Params, x, aux_dims=None):
     kth = torch.topk(glog, k, dim=-1).values[..., -1:]
     sel = glog >= kth
     gates = torch.softmax(glog.masked_fill(~sel, _NEG_INF), dim=-1)
+    if isinstance(p, SplitParams):  # routed over all experts; this rank's gates
+        gates = gates[..., p.expert0:p.expert0 + p["w1"].shape[-3]]
     h = torch.einsum("...d,edh->...eh", x.to(dt), p["w1"].to(dt)) + p["b1"]
     h = F.gelu(h.float(), approximate="tanh").to(dt)
     y = torch.einsum("...eh,ehd->...ed", h.float(), p["w2"].to(dt).float()) + p["b2"]
-    out = torch.einsum("...e,...ed->...d", gates, y)
+    out = _reduced(p, torch.einsum("...e,...ed->...d", gates, y))
     if aux_dims is None:
         return out, None
     frac = sel.float().mean(dim=aux_dims)
@@ -278,7 +309,7 @@ def _mlp(cfg: TabICAConfig, p: Params, x):
     dt = _dt(cfg.dtype)
     h = (x.to(dt) @ p["w1"].to(dt)) + p["b1"]
     h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return h.float() @ p["w2"].to(dt).float() + p["b2"]
+    return _reduced(p, h.float() @ p["w2"].to(dt).float()) + p["b2"]
 
 
 def _res_add(cfg, h, delta):

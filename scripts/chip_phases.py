@@ -2,13 +2,19 @@
 """Run some of chip_smoke.py's phases on the card, alone or for several trees in turns.
 
     python3 scripts/chip_phases.py --phases seq          # from the repo root
+    python3 scripts/chip_phases.py --phases parallel
+    python3 scripts/chip_phases.py --phases main \
+        --trees parent=_chip_scratch/parent,change=.,change=.,parent=_chip_scratch/parent
     python3 scripts/chip_phases.py --phases eval \
         --trees parent=_chip_scratch/parent,change=.,change=.,parent=_chip_scratch/parent
 
 ``seq`` runs phases 19-22 (sequential inference and the kernel at its
 shapes) of this checkout after the build, with every gate of chip_smoke.py.
 ``eval`` runs phases 17-18 (metrics and ``evaluate_task`` on the twelve
-tasks). With ``--trees`` each ``label=dir`` (a checkout of the repo, e.g. a
+tasks). ``parallel`` runs phase 5 (whose first request phase 26 repeats)
+and phase 26 (npe_pfn_tpu_torch.parallel in one NCCL group of one rank).
+``main`` runs phase 5, times three more of its requests, and runs phase 9
+(the pretrain_v7 steps): the single-device request and step times. With ``--trees`` each ``label=dir`` (a checkout of the repo, e.g. a
 ``git archive`` of the parent commit) runs in its own process, one after the
 other in the order given, and prints one ``PAIR <label>`` line of phase
 times: compare two commits inside one call, in turns (parent, change,
@@ -39,8 +45,27 @@ def run_here(phases):
         raise SystemExit("chip_phases.py runs on a CUDA card")
     smi = cs.phase_device()
     cs.phase_build()
-    model = load_default(torch.device("cuda"))
     times = {}
+    if phases == "main":
+        est, _, x, _, _ = cs.phase_main_path()
+        for i in range(3):
+            gen = torch.Generator("cuda").manual_seed(100 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.sample(cs.SAMPLES, x[i + 1], generator=gen)
+            torch.cuda.synchronize()
+            times[f"request {i}"] = time.perf_counter() - t0
+        times["steps_per_s"] = cs.phase_train()["steps_per_s"]
+        return times
+    if phases == "parallel":
+        t0 = time.perf_counter()
+        est, _, _, request, _ = cs.phase_main_path()
+        times["phase 5"] = time.perf_counter() - t0
+        out = cs.phase_parallel(est, request, smi)
+        times["phase 26"] = out["phase_seconds"]
+        times.update({f"parallel {k}": v for k, v in out["seconds"].items()})
+        return times
+    model = load_default(torch.device("cuda"))
     if phases == "eval":
         t0 = time.perf_counter()
         cs.phase_metrics(smi)
@@ -65,7 +90,7 @@ def run_here(phases):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", choices=("seq", "eval"), required=True)
+    ap.add_argument("--phases", choices=("seq", "eval", "parallel", "main"), required=True)
     ap.add_argument("--trees", default=None, help="label=dir,... run in turns")
     ap.add_argument("--label", default="this", help=argparse.SUPPRESS)
     args = ap.parse_args()

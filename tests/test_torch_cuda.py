@@ -533,3 +533,134 @@ def test_flow_npe_fits_on_card(cuda_device):
     s = flow.sample(512, x_o, generator=torch.Generator(device=cuda_device).manual_seed(1))
     lp = flow.log_prob(s, x_o)
     assert s.shape == (512, 2) and bool(torch.isfinite(s).all() and torch.isfinite(lp).all())
+
+
+# --- npe_pfn_tpu_torch.parallel on the card: one NCCL group of one rank ------
+# (NCCL takes one card per rank; a multi-rank run needs as many cards.)
+
+
+@pytest.fixture(scope="module")
+def nccl_rank(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the GPU machine")
+    import torch.distributed as dist
+
+    from npe_pfn_tpu_torch.parallel import init_distributed
+
+    dev = init_distributed(0, 1, "file://" + str(tmp_path_factory.mktemp("nccl") / "rdzv"))
+    yield dev
+    dist.destroy_process_group()
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.parametrize("experts", [0, 4])
+def test_parallel_paths_match_single_device(nccl_rank, experts):
+    """Each parallel path at world size 1 against its single-device path:
+    bf16 at head_dim 128 (the wgmma design), logits within 1e-3 x
+    max(1, |logit|); sharded sampling bit for bit."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from npe_pfn_tpu_torch.estimator import autoregressive_sample
+    from npe_pfn_tpu_torch.models import regressor
+    from npe_pfn_tpu_torch.parallel import (ep_place, get_mesh, pp_decode, pp_fit_encode,
+                                            sharded_autoregressive_sample, tp_place)
+    from npe_pfn_tpu_torch.parallel.context_sharded import sp_decode, sp_fit_encode
+
+    dev = nccl_rank
+    gen = torch.Generator(device=dev).manual_seed(30)
+    cfg = TabICAConfig(d_model=256, num_heads=2, num_layers=2, max_features=16, num_bars=64,
+                       dtype="bfloat16", scores_dtype="bfloat16", num_experts=experts)
+    model = TabICAModel.create(gen, cfg)
+    x_ctx, x_qry = torch.randn(300, 12, generator=gen, device=dev), torch.randn(
+        64, 12, generator=gen, device=dev)
+    y_ctx = torch.randn(300, generator=gen, device=dev)
+    ctx_mask = torch.rand(300, generator=gen, device=dev) > 0.1
+
+    def logits(m):
+        return regressor.predict_logits(m, regressor.fit_encode(m, x_ctx, y_ctx,
+                                                                ctx_mask=ctx_mask), x_qry)
+
+    ref = logits(model)
+    if experts:
+        placed = ep_place(get_mesh(1, axis="ep"), model)
+        assert _rel_err(logits(placed), ref) <= 1e-3
+        return
+    mesh_sp = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "sp"))
+    for mode in ("gather", "ring"):
+        fitted = sp_fit_encode(mesh_sp, model, x_ctx, y_ctx, ctx_mask=ctx_mask, row_attn=mode)
+        assert _rel_err(sp_decode(mesh_sp, model, fitted, x_qry, row_attn=mode), ref) <= 1e-3
+    assert _rel_err(logits(tp_place(get_mesh(1, axis="tp"), model)), ref) <= 1e-3
+    mesh_pp = get_mesh(1, axis="pp")
+    fitted = pp_fit_encode(mesh_pp, model, x_ctx, y_ctx, ctx_mask=ctx_mask)
+    assert _rel_err(pp_decode(mesh_pp, model, fitted, x_qry, num_microbatches=2), ref) <= 1e-3
+    theta_ctx = torch.randn(300, 2, generator=gen, device=dev)
+    args = (theta_ctx, x_ctx[:, :3], ctx_mask, x_qry[:, :3])
+    got = sharded_autoregressive_sample(get_mesh(1), model, *args,
+                                        torch.Generator(device=dev).manual_seed(5), 32)
+    want = autoregressive_sample(model, *args, torch.Generator(device=dev).manual_seed(5), 32)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_dp_step_equals_train_step(nccl_rank):
+    from npe_pfn_tpu_torch.parallel import get_mesh, make_sharded_train_step
+    from npe_pfn_tpu_torch.pretrain import prior, train
+
+    dev = nccl_rank
+    model = _random_model(d=256, dtype="bfloat16")
+    tcfg = train.TrainConfig(num_datasets=2, warmup_steps=0, max_steps=10)
+    pcfg = prior.PriorConfig(num_features=12, num_ctx=200, num_qry=40, max_active_features=10)
+    opt_state = train.make_optimizer(tcfg).init(model.params)
+    step, place = make_sharded_train_step(get_mesh(1), model.cfg, tcfg, pcfg)
+    dp = place(model.params, opt_state)
+    one = (model.params, opt_state)
+    for i in range(2):
+        p, s, loss, gnorm = step(*dp, model.borders, torch.Generator(device=dev).manual_seed(i))
+        p1, s1, loss1, gnorm1 = train.train_step(model.cfg, tcfg, pcfg, *one, model.borders,
+                                                 torch.Generator(device=dev).manual_seed(i))
+        dp, one = (p, s), (p1, s1)
+        assert (loss.item(), gnorm.item()) == (loss1.item(), gnorm1.item())
+    for name, t in pytree_io.flatten(dp[0]).items():
+        assert torch.equal(t, pytree_io.flatten(one[0])[name]), name
+
+
+def test_ring_merge_of_the_lse_kernel(cuda_device):
+    """The lse kernel over 2048 keys in 4 slices (one fully masked), merged
+    in f32, against one call over all keys: output within phase 3's bf16
+    bound, lse within 1e-4 relative."""
+    from npe_pfn_tpu_torch.parallel.context_sharded import merge_partials
+
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    q, k, v = (torch.randn((25, 2048, 2, 128), generator=gen, device=cuda_device).bfloat16()
+               for _ in range(3))
+    m = torch.rand(2048, generator=gen, device=cuda_device) > 0.2
+    m[512:1024] = False
+    out, lse = fa.flash_row_attention_lse(q, k, v, m)
+    o_acc = lse_acc = None
+    for sl in torch.arange(2048, device=cuda_device).chunk(4):
+        o_acc, lse_acc = merge_partials(o_acc, lse_acc,
+                                        *fa.flash_row_attention_lse(q, k[:, sl], v[:, sl], m[sl]))
+    assert bool(torch.isfinite(o_acc).all())
+    assert (o_acc - out.float()).abs().max().item() <= 1e-2 * max(1.0, out.float().abs().max())
+    assert ((lse_acc - lse).abs() / lse.abs().clamp_min(1.0)).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("lq,lk", [(2048, 2048), (128, 768)])
+def test_kernels_at_one_head(cuda_device, lq, lk):
+    """A 2-way tensor-parallel rank of the shipped checkpoint runs one head
+    of 128: the forward, lse forward and backward there against the plain
+    versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    q, k, v, d_out = _qkv_do(20, lq, lk, 1, 128, torch.bfloat16, gen, cuda_device)
+    _check_wgmma_fwd_bwd(q, k, v, _mask("batch", 20, lk, gen, cuda_device), d_out)
+
+
+def test_dryrun_on_card(cuda_device, capfd):
+    from npe_pfn_tpu_torch.parallel import dryrun_multichip
+
+    dryrun_multichip(1)
+    assert "sharded sampling on 1 ranks OK" in capfd.readouterr().out
+    with pytest.raises(RuntimeError, match="CUDA cards, one each"):
+        dryrun_multichip(torch.cuda.device_count() + 1)

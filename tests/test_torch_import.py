@@ -42,6 +42,7 @@ def test_import_loads_no_jax():
         "import npe_pfn_tpu_torch.support, npe_pfn_tpu_torch.restricted_prior\n"
         "import npe_pfn_tpu_torch.tsnpe, npe_pfn_tpu_torch.unconditional\n"
         "import npe_pfn_tpu_torch.eval.calibration, npe_pfn_tpu_torch.__main__\n"
+        "import npe_pfn_tpu_torch.parallel, npe_pfn_tpu_torch.parallel.context_sharded\n"
         "from npe_pfn_tpu_torch.tasks import get_task, list_tasks\n"
         "tasks = [get_task(n, device='cpu') for n in list_tasks()]\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
