@@ -1992,7 +1992,8 @@ PARALLEL_LAUNCHES = {"sharded_sample_10240": (480, 0, 0), "sp_gather": (16, 0, 0
 # fully masked), merged in f32, against one call over all keys. Output:
 # phase 3's bf16 bound (each slice's output is rounded to bf16 before the
 # merge); lse: 1e-4 x max(1, |lse|) (a few f32 roundings of the merge).
-RING_SLICES, MAX_RING_LSE_REL = 4, 1e-4
+# Its shape: B, queries, keys.
+RING_SLICES, MAX_RING_LSE_REL, RING_SHAPE = 4, 1e-4, (25, 2048, 2048)
 
 
 def check_parallel_launches(path, counts):
@@ -2009,7 +2010,7 @@ def _rel(got, ref):
 NARROW_SHAPES = (("inference B20 2048x2048", 20, 2048, 2048), ("lse B264 768x768", 264, 768, 768))
 
 
-def _narrow_kernels(dev, shapes=NARROW_SHAPES):
+def _narrow_kernels(dev):
     """The inference and lse kernels at H = 1, a 2-way tensor-parallel
     rank's shape of the shipped checkpoint (bf16, hd 128), against their
     plain versions at phases 3 and 7's tolerances."""
@@ -2019,7 +2020,7 @@ def _narrow_kernels(dev, shapes=NARROW_SHAPES):
 
     gen = torch.Generator(dev).manual_seed(26)
     errs = {}
-    for name, b, lq, lk in shapes:
+    for name, b, lq, lk in NARROW_SHAPES:
         q, k, v = (torch.randn((b, n, 1, 128), generator=gen, device=dev).bfloat16()
                    for n in (lq, lk, lk))
         m = torch.arange(lk, device=dev)[None] < torch.randint(lk // 2, lk + 1, (b, 1),
@@ -2039,12 +2040,13 @@ def _narrow_kernels(dev, shapes=NARROW_SHAPES):
     return errs
 
 
-def _ring_merge(dev, b=25, lq=2048, lk=2048):
+def _ring_merge(dev):
     import torch
 
     from npe_pfn_tpu_torch.ops import flash_attention as fa
     from npe_pfn_tpu_torch.parallel.context_sharded import merge_partials
 
+    b, lq, lk = RING_SHAPE
     gen = torch.Generator(dev).manual_seed(27)
     q, k, v = (torch.randn((b, n, 2, 128), generator=gen, device=dev).bfloat16()
                for n in (lq, lk, lk))
@@ -2068,7 +2070,7 @@ def _ring_merge(dev, b=25, lq=2048, lk=2048):
     return dict(out_err=out_err, lse_rel=lse_rel)
 
 
-def phase_parallel(est, request, smi, recipe=None):
+def phase_parallel(est, request, smi):
     """npe_pfn_tpu_torch.parallel on one card: one NCCL group of one rank,
     destroyed at the end of the phase."""
     import os
@@ -2085,7 +2087,7 @@ def phase_parallel(est, request, smi, recipe=None):
         init_distributed(0, 1, "file://" + os.path.join(tmp, "rendezvous"),
                          None if dev.type == "cuda" else dev)
         try:
-            out = _parallel_paths(est, request, smi, recipe or train_recipe, dev)
+            out = _parallel_paths(est, request, smi, dev)
         finally:
             dist.destroy_process_group()
     out["narrow_kernels_max_abs_err"] = _narrow_kernels(dev)
@@ -2095,7 +2097,7 @@ def phase_parallel(est, request, smi, recipe=None):
     return out
 
 
-def _parallel_paths(est, request, smi, recipe, dev):
+def _parallel_paths(est, request, smi, dev):
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -2105,7 +2107,7 @@ def _parallel_paths(est, request, smi, recipe, dev):
                                             pp_decode, pp_fit_encode,
                                             sharded_autoregressive_sample, tp_place)
     from npe_pfn_tpu_torch.parallel.context_sharded import sp_decode, sp_fit_encode
-    from npe_pfn_tpu_torch.pretrain import train
+    from npe_pfn_tpu_torch.pretrain import prior, train
 
     model = est.model
     seconds, launches, rel = {}, {}, {}
@@ -2157,7 +2159,7 @@ def _parallel_paths(est, request, smi, recipe, dev):
         meshes["pp"], model, feats, y, ctx_mask=ctx_mask), xq, num_microbatches=2))
     rel["pp_2_microbatches"] = _rel(got, ref)
 
-    cfg, tcfg, pcfg = recipe()
+    cfg, tcfg, pcfg = train_recipe()
     moe = TabICAModel.create(torch.Generator(dev).manual_seed(7), dataclasses.replace(
         cfg, num_experts=4, moe_top_k=2))
     ref_moe = logits_of(moe)
@@ -2198,9 +2200,18 @@ def _parallel_paths(est, request, smi, recipe, dev):
         single.append((loss, gnorm))
     dp_reads = [(a.item(), b.item()) for a, b in dp_reads]
     single = [(a.item(), b.item()) for a, b in single]
+    # Every dp rank draws the step's whole batch and keeps its share: the
+    # prior's time per step stays as the ranks' model work shrinks.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prior.sample_tasks(gen_of(0), tcfg.num_datasets, pcfg)
+    torch.cuda.synchronize()
+    seconds["prior_draw"] = time.perf_counter() - t0
     log(f"parallel: 2 dp steps of the pretrain_v7 recipe on 1 rank in "
         f"{seconds['dp_2_steps']:.4f} s; (loss, gnorm) {dp_reads}, train_step {single}; "
-        f"launches {launches['dp_2_steps']}; {smi}")
+        f"launches {launches['dp_2_steps']}; one prior draw of the step's "
+        f"{tcfg.num_datasets} tasks {seconds['prior_draw']:.4f} s "
+        f"({200 * seconds['prior_draw'] / seconds['dp_2_steps']:.1f}% of a step); {smi}")
     if dp_reads != single:
         raise AssertionError("the dp steps' loss and gnorm differ from train_step's")
     return dict(seconds=seconds, rel=rel, dp=dp_reads,

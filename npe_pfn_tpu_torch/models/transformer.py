@@ -48,8 +48,11 @@ class SplitParams(dict):
     partial sum: ``reduce`` sums it over the group, in place, where GSPMD
     inserts the psum in the JAX package (after ``wo``, the dense ``w2`` and
     the expert combine), and the residual bias is added once after it.
-    ``expert0`` is the global index of the rank's first expert. The leaves
-    are plain tensors, so ``pytree_io`` and checkpoints see a plain tree.
+    The reduce carries no gradient (autograd would take it for the identity
+    and never sum the split input projections' gradients), so a placed model
+    runs forward only: under grad it raises. ``expert0`` is the global index
+    of the rank's first expert. The leaves are plain tensors, so
+    ``pytree_io`` and checkpoints see a plain tree.
     """
 
     def __init__(self, items, reduce, expert0: int = 0):
@@ -61,7 +64,12 @@ class SplitParams(dict):
 def _reduced(p: Params, x):
     """``x`` summed over the ranks that share ``p``'s product (``x`` itself
     for a plain dict)."""
-    return p.reduce(x) if isinstance(p, SplitParams) else x
+    if not isinstance(p, SplitParams):
+        return x
+    if x.requires_grad:
+        raise RuntimeError("a tensor- or expert-parallel model runs forward only: its "
+                           "all_reduce carries no gradient; train data-parallel instead")
+    return p.reduce(x)
 
 
 def layer(blocks: Params, i: int) -> Params:

@@ -138,12 +138,13 @@ def make_sharded_train_step(
     """Data-parallel train step: datasets sharded, parameters replicated.
 
     Returns ``(step, place)``. ``step(params, opt_state, borders, generator,
-    batch=None, max_feat=None)`` returns ``(params, opt_state, loss, gnorm)``
+    batch=None)`` returns ``(params, opt_state, loss, gnorm)``
     like ``train.train_step``. Draw rule: without ``batch`` every rank draws
     the step's whole batch of ``tcfg.num_datasets`` tasks from ``generator``
     (seed it alike on every rank), as JAX draws one batch from the step key
-    and shards it, and keeps its contiguous share; a given ``batch`` is the
-    whole batch and is sharded the same way. The gradients and the loss are
+    and shards it, and keeps its contiguous share (so each rank pays the
+    whole batch's prior draw); a given ``batch`` is the whole batch and is
+    sharded the same way. The gradients and the loss are
     averaged with one ``all_reduce`` over a flat bucket, so the global-norm
     clip and the reported ``loss`` and ``gnorm`` are the global ones. Shares
     are equal, so the mean of the ranks' losses (each a mean over its
@@ -159,9 +160,9 @@ def make_sharded_train_step(
     src = dist.get_process_group_ranks(group)[0]
     opt = train_mod.make_optimizer(tcfg)
 
-    def step(params, opt_state, borders, generator, batch=None, max_feat=None):
+    def step(params, opt_state, borders, generator, batch=None):
         if batch is None:
-            batch = prior.sample_tasks(generator, tcfg.num_datasets, pcfg, max_feat)
+            batch = prior.sample_tasks(generator, tcfg.num_datasets, pcfg)
         params = train_mod._tree_map(lambda t: t.detach().requires_grad_(True), params)
         loss, grads = averaged_loss_and_grads(mesh, cfg, tcfg, params, borders,
                                               shard_batch(mesh, batch, axis), axis)

@@ -87,3 +87,10 @@ def test_ep_validation(run):
     assert errors["dense"] == "ep_place requires a MoE model (cfg.num_experts > 0)"
     assert errors["experts"] == "ep axis size 4 must divide num_experts=2"
     assert errors["heads"] == "tp axis size 4 must divide num_heads=2"
+
+
+def test_ep_refuses_grad(run):
+    """An ep-placed model's expert combine is reduced without a gradient, so
+    under grad it raises rather than hand back partial gradients."""
+    for rank_out in run[-1]:
+        assert "runs forward only" in rank_out["errors"]["grad"]

@@ -102,3 +102,10 @@ def test_tp_validation(run):
     errors = run[-1][0]["errors"]
     assert errors["heads"] == "tp axis size 2 must divide num_heads=1"
     assert "use expert_parallel.ep_place(mesh, model, tp_axis=...)" in errors["moe"]
+
+
+def test_tp_refuses_grad(run):
+    """A tp-placed model's all_reduce carries no gradient, so under grad it
+    raises rather than hand back partial gradients."""
+    for rank_out in run[-1]:
+        assert "runs forward only" in rank_out["errors"]["grad"]

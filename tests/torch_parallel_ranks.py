@@ -71,13 +71,26 @@ def _np(x):
     return x.detach().numpy().copy()
 
 
-def _error(fn):
-    """The message of the ValueError ``fn()`` raises ("" if none)."""
+def _error(fn, kind=ValueError):
+    """The message of the ``kind`` error ``fn()`` raises ("" if none)."""
     try:
         fn()
-    except ValueError as exc:
+    except kind as exc:
         return str(exc)
     return ""
+
+
+def _grad_error(place, model, x_ctx, y_ctx, x_qry):
+    """The RuntimeError of the training forward under grad through
+    ``place(model)``, whose parameters require grad ("" if none)."""
+    from npe_pfn_tpu_torch.models import transformer
+    from npe_pfn_tpu_torch.utils import pytree_io
+
+    for t in pytree_io.flatten(model.params).values():
+        t.requires_grad_(True)
+    placed = place(model)
+    return _error(lambda: transformer.forward(placed.cfg, placed.params, x_ctx, y_ctx, x_qry),
+                  RuntimeError)
 
 
 def _gen(seed):
@@ -181,7 +194,8 @@ def sp_body(rank, world, model, pooled, x_ctx, y_ctx, x_qry, masks, cases):
 def tp_body(rank, world, models, x_ctx, y_ctx, x_qry, cases, sample, seed, bad):
     """``tp_forward_logits`` for each case ``(model, shape, names,
     data_axis)``; ``autoregressive_sample`` through a tp-placed model and the
-    replicated one on the same generator; ``tp_place``'s errors."""
+    replicated one on the same generator; ``tp_place``'s errors, and the
+    refusal of a placed model under grad."""
     from npe_pfn_tpu_torch.estimator import autoregressive_sample
     from npe_pfn_tpu_torch.parallel import tp_forward_logits, tp_place
 
@@ -199,6 +213,8 @@ def tp_body(rank, world, models, x_ctx, y_ctx, x_qry, cases, sample, seed, bad):
     out["sample_tp"] = [_np(a) for a in autoregressive_sample(placed, *args, _gen(seed), 16)]
     out["sample_one"] = [_np(a) for a in autoregressive_sample(built[name], *args, _gen(seed), 16)]
     out["errors"] = {k: _error(lambda: tp_place(mesh, build(v))) for k, v in bad.items()}
+    out["errors"]["grad"] = _grad_error(lambda m: tp_place(mesh, m), build(models[name]),
+                                        x_ctx, y_ctx, x_qry)
     return out
 
 
@@ -229,7 +245,8 @@ def pp_body(rank, world, models, x_ctx, y_ctx, x_qry, ctx_mask, cases, three_lay
 
 def ep_body(rank, world, models, x_ctx, y_ctx, x_qry, cases, bad):
     """``fit_encode`` + ``predict_logits`` through ``ep_place`` for each case
-    ``(model, shape, names, tp_axis)``; ``ep_place``'s errors."""
+    ``(model, shape, names, tp_axis)``; ``ep_place``'s errors, and the
+    refusal of a placed model under grad."""
     from npe_pfn_tpu_torch.models import regressor
     from npe_pfn_tpu_torch.parallel import ep_place
 
@@ -244,4 +261,8 @@ def ep_body(rank, world, models, x_ctx, y_ctx, x_qry, cases, bad):
     for key, (spec, shape, names, tp_axis) in bad.items():
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
         out["errors"][key] = _error(lambda: ep_place(mesh, build(spec), tp_axis=tp_axis))
+    name, shape, names, tp_axis = cases[0]
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+    out["errors"]["grad"] = _grad_error(lambda m: ep_place(mesh, m, tp_axis=tp_axis),
+                                        build(models[name]), x_ctx, y_ctx, x_qry)
     return out
