@@ -122,6 +122,7 @@ Any failure exits non-zero without the last line. It imports nothing of JAX.
 
 import dataclasses
 import faulthandler
+import functools
 import json
 import math
 import signal
@@ -129,10 +130,11 @@ import subprocess
 import sys
 import time
 
-# The whole run, nvcc builds included, took 70-89 s on an H100 (PERF.md);
-# 450 s leaves a margin of about 5x and still ends a hang (exit != 0, with a
-# message) long before any outer time limit would cut the run.
-DEADLINE_S = 450
+# The whole run, nvcc builds included, takes 345-362 s on an H100 at 700 W
+# (PERF.md), and over 450 s on a slow host. 1050 s leaves a margin of about
+# 3x and still ends a hang (exit != 0, with the phases' times so far) before
+# a 1200 s outer limit would cut the run.
+DEADLINE_S = 1050
 
 SOURCES = ("flash_row_attention.cu", "flash_row_attention_bwd.cu")
 
@@ -166,8 +168,27 @@ def log(*parts):
     print(*parts, flush=True)
 
 
+# Wall seconds of each finished phase, in order, and the phase running now.
+PHASE_SECONDS = {}
+RUNNING = [None]
+
+
+def timed_phase(fn):
+    """A phase: its wall time is logged and kept in PHASE_SECONDS."""
+    @functools.wraps(fn)
+    def phase(*args):
+        RUNNING[0] = fn.__name__
+        t0 = time.perf_counter()
+        out = fn(*args)
+        PHASE_SECONDS[fn.__name__] = round(time.perf_counter() - t0, 1)
+        log(f"[{fn.__name__}] {PHASE_SECONDS[fn.__name__]} s")
+        return out
+    return phase
+
+
 def _on_alarm(signum, frame):
-    raise TimeoutError(f"chip_smoke.py exceeded its {DEADLINE_S} s deadline")
+    raise TimeoutError(f"chip_smoke.py exceeded its {DEADLINE_S} s deadline in "
+                       f"{RUNNING[0]}; finished phases (s): {PHASE_SECONDS}")
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -185,6 +206,7 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+@timed_phase
 def phase_device():
     import torch
 
@@ -219,6 +241,7 @@ def ptxas_kernels(build_log):
     return out
 
 
+@timed_phase
 def phase_build():
     """Build every kernel source at once, one nvcc process each; returns the
     wgmma kernels' registers and spills, {short name: (regs, stores, loads)}."""
@@ -288,6 +311,7 @@ def _inputs(b, lq, lk, h, hd, dtype, mask_kind, gen):
     return q, k, v, m
 
 
+@timed_phase
 def phase_kernel_parity():
     import torch
 
@@ -368,6 +392,7 @@ TIME_SHAPES = (("B25", 25, 2048, 2048), ("B17", 17, 2048, 2048),
                ("B8_pooled", 8, 2048, 2048))
 
 
+@timed_phase
 def phase_kernel_time(regs_of):
     """The inference kernel at the paths' shapes, beside its bound, its plain
     version and scaled_dot_product_attention."""
@@ -439,6 +464,7 @@ def _rel_err(out, ref, zero_rows=None):
     return torch.where(scale > 0, err / scale.clamp_min(1e-30), exact).max().item()
 
 
+@timed_phase
 def phase_train_kernel_parity():
     """The lse forward and the backward against their plain versions."""
     import torch
@@ -526,6 +552,7 @@ def _attention_bound(flops, nbytes):
     return max(bound_flops_ms, bound_bytes_ms), by
 
 
+@timed_phase
 def phase_train_kernel_time(regs_of):
     """Times of the lse forward and the backward at the two training shapes,
     beside their bounds, plain versions and scaled_dot_product_attention
@@ -623,6 +650,7 @@ def _shipped_checkpoint():
                         "tabica_v6_best.npz")
 
 
+@timed_phase
 def phase_train():
     """Warm-start tabica_v6_best and take 1 + TRAIN_STEPS train_steps of the recipe;
     then run train.train() briefly, checkpoints into a temporary directory."""
@@ -717,6 +745,7 @@ MAX_REL_GRAD_ERR = 0.12
 MIN_GRAD_COSINE = 0.998
 
 
+@timed_phase
 def phase_train_path_parity():
     """Loss and gradients of one fixed batch through the kernels against the
     dense path with f32 scores, same weights (tabica_v6_best, bf16)."""
@@ -778,6 +807,7 @@ NLL_ROWS = (256, 64)
 NLL_BATCHES = 4
 
 
+@timed_phase
 def phase_prior_nll():
     import torch
 
@@ -820,6 +850,7 @@ def phase_prior_nll():
     return reads
 
 
+@timed_phase
 def phase_main_path():
     import torch
 
@@ -888,6 +919,7 @@ def phase_main_path():
     return est, task, x, requests[0], total_launches
 
 
+@timed_phase
 def phase_path_parity(est, request):
     import torch
 
@@ -1073,6 +1105,7 @@ def _path_line(path, seconds, rows, counts, smi):
         f"round; {smi}")
 
 
+@timed_phase
 def phase_sample_batched(est, task, x, smi):
     """sample_batched(1024) over 16 observations: Normal prior (one round),
     then a box that accepts few draws (three rounds and the escape hatch)."""
@@ -1123,6 +1156,7 @@ def phase_sample_batched(est, task, x, smi):
     return dict(seconds=seconds, box_seconds=box_seconds, xs=xs, theta=theta, lp=lp, gen=gen)
 
 
+@timed_phase
 def phase_densities(est, request, batched, smi):
     """log_prob of phase 5's first request against its own log-probs, and
     log_prob_batched of the sample_batched draws against theirs (the same
@@ -1143,6 +1177,7 @@ def phase_densities(est, request, batched, smi):
     return lp, dict(log_prob=seconds, log_prob_batched=seconds_b, checks=out)
 
 
+@timed_phase
 def phase_filtered(est, task, x, smi):
     """sample_batched_filtered(1024) over 8 observations, each on its own
     nearest-2048 context; two observations' log-probs rescored by log_prob."""
@@ -1161,6 +1196,7 @@ def phase_filtered(est, task, x, smi):
     return dict(seconds=seconds, check=check)
 
 
+@timed_phase
 def phase_ensembles(est, task, x_o, smi):
     """sample(SAMPLES) with 4 context members (quantile target and feature
     maps), its log-probs against log_prob; then with 2 factorization orders."""
@@ -1189,6 +1225,7 @@ def phase_ensembles(est, task, x_o, smi):
     return out
 
 
+@timed_phase
 def phase_cached(est, task, request, lp_ref, smi):
     """CachedPosterior on phase 5's first observation: one encode of all 10
     dims, sample(SAMPLES) decode-only, and log_prob against est.log_prob."""
@@ -1220,6 +1257,7 @@ C2ST_NULL_MAX, C2ST_SHIFT2_MIN, C2ST_SHIFT1_MIN, C2ST_CONV_MIN = 0.6, 0.95, 0.8,
 SINKHORN_REL = 0.1
 
 
+@timed_phase
 def phase_metrics(smi):
     import torch
 
@@ -1292,6 +1330,7 @@ def _eval_bands():
         return {name: e["band"] for name, e in json.load(f)["tasks"].items() if "band" in e}
 
 
+@timed_phase
 def phase_evaluate(model, smi):
     import torch
 
@@ -1448,6 +1487,7 @@ def fa_launches():
     return fa.flash_row_attention.launches
 
 
+@timed_phase
 def phase_tsnpe(model, smi):
     """run_tsnpe at full width with exact launches per step, sample(10_240)
     from the fitted estimator under phase 5's check, and one SIR round."""
@@ -1559,6 +1599,7 @@ def phase_tsnpe(model, smi):
                 est=est, task=task, x_o=x_o, support=support)
 
 
+@timed_phase
 def phase_refine_ratio(model, smi):
     """The refine and ratio protocols of scripts/torch_sequential_protocols.py
     at seed 0, each inside its JAX band."""
@@ -1626,6 +1667,7 @@ def ratio_context_check(model, seqcal, smi):
                 floor_rel_diff=floor_diff)
 
 
+@timed_phase
 def phase_heads(model, tsnpe, smi):
     """audit_binary, RestrictedPrior, the unconditional estimator and the CLI."""
     import torch
@@ -1694,6 +1736,7 @@ def phase_heads(model, tsnpe, smi):
     return out
 
 
+@timed_phase
 def phase_seq_kernel(shapes):
     """The inference kernel at every new (B, Lq, Lk) of phases 19-21 (all keys
     valid): against its plain version with phase 3's tolerance, then timed
@@ -1764,6 +1807,7 @@ POOL_MOE_SAMPLE_LAUNCHES = 480
 MAX_ENCODE_DECODE_REL = 1e-3
 
 
+@timed_phase
 def phase_pool_moe_train(smi):
     """1 + POOL_MOE_STEPS train_steps of each model, then phase 10's check."""
     import torch
@@ -1845,6 +1889,7 @@ def phase_pool_moe_train(smi):
     return out
 
 
+@timed_phase
 def phase_pool_moe_sample(trained, smi):
     """sample(10_240) from each of phase 23's models, with phase 6's check,
     the density check and the encode + decode identity."""
@@ -1929,6 +1974,7 @@ def phase_pool_moe_sample(trained, smi):
 FLOW_MAX_MEAN_SDS, FLOW_STD_RATIO, FLOW_MAX_LP_OFFSET = 3.5, 0.35, 0.5
 
 
+@timed_phase
 def phase_flow_npe(smi):
     import torch
 
@@ -2070,6 +2116,7 @@ def _ring_merge(dev):
     return dict(out_err=out_err, lse_rel=lse_rel)
 
 
+@timed_phase
 def phase_parallel(est, request, smi):
     """npe_pfn_tpu_torch.parallel on one card: one NCCL group of one rank,
     destroyed at the end of the phase."""
@@ -2253,11 +2300,9 @@ def main():
         refined = phase_refine_ratio(est.model, smi)
         heads = phase_heads(est.model, tsnpe, smi)
     seq_rows, _ = phase_seq_kernel(seq_shapes)
-    t_new = time.perf_counter()
     pool_moe = phase_pool_moe_train(smi)
     pool_moe_sample = phase_pool_moe_sample(pool_moe, smi)
     flows = phase_flow_npe(smi)
-    log(f"phases 23-25 in {time.perf_counter() - t_new:.1f} s")
     parallel = phase_parallel(est, request, smi)
     par = parallel["launches"]
     csrc = "npe_pfn_tpu_torch/ops/csrc/"
@@ -2315,6 +2360,7 @@ def main():
         name: {"train": {k: v for k, v in tr.items() if k != "model"},
                "sample": pool_moe_sample[name]}
         for name, tr in pool_moe.items()}, "flow_npe": flows, "parallel": parallel}))
+    log(f"phase seconds {json.dumps(PHASE_SECONDS)}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
